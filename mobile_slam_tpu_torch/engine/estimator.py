@@ -1,0 +1,440 @@
+"""Sliding-window VIO estimator steps (torch twin of
+mobile_slam_tpu.engine.estimator).
+
+* ``bookkeeping_step``  — IMU ingestion + feature add + keyframe decision.
+* ``solve_and_slide``   — triangulate, optimize, marginalize, slide.
+* ``initial_advance_or_slide`` — the INITIAL-phase advance / slide.
+* ``apply_initialization`` / ``repropagate_window`` — inject the host init.
+
+The reference's ``lax.cond`` on the keyframe flag becomes a host branch:
+the engine reads the flag once per frame.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from mobile_slam_tpu.config import NUM_SLOTS, VIOConfig
+from mobile_slam_tpu.solver import layout
+from mobile_slam_tpu_torch.factors import marginalization
+from mobile_slam_tpu_torch.factors.imu_factor import sqrt_info_from_cov
+from mobile_slam_tpu_torch.frontend import feature_table as ft
+from mobile_slam_tpu_torch.imu import preintegration as pre
+from mobile_slam_tpu_torch.models.state import (FeatureTable, WindowState,
+                                                eligible_mask,
+                                                init_feature_table, init_window)
+from mobile_slam_tpu_torch.solver import lm
+from mobile_slam_tpu_torch.solver.assembly import (Prior, SolverParams, XState,
+                                                   zero_prior)
+from mobile_slam_tpu_torch.utils import rotations as rot
+from mobile_slam_tpu_torch.utils.linalg import tree_where
+
+W = NUM_SLOTS
+
+
+class EstimatorState(NamedTuple):
+    window: WindowState
+    table: FeatureTable
+    prior: Prior
+    prev_acc: torch.Tensor      # (3,)
+    prev_gyr: torch.Tensor      # (3,)
+    frame_count: torch.Tensor   # () int32
+    first_imu_seen: torch.Tensor  # () bool
+    td: torch.Tensor            # ()
+
+
+class FrameInput(NamedTuple):
+    ts: torch.Tensor        # ()
+    ids: torch.Tensor       # (K,) int32
+    obs: torch.Tensor       # (K, 3)
+    uv: torch.Tensor        # (K, 2)
+    vel: torch.Tensor       # (K, 2)
+    valid: torch.Tensor     # (K,) bool
+    imu_dt: torch.Tensor    # (M,)
+    imu_acc: torch.Tensor   # (M, 3)
+    imu_gyr: torch.Tensor   # (M, 3)
+    imu_cnt: torch.Tensor   # () int32
+
+
+class StepDiag(NamedTuple):
+    is_keyframe: torch.Tensor
+    culled_ids: torch.Tensor
+    last_track_num: torch.Tensor
+    solver_cost0: torch.Tensor
+    solver_cost: torch.Tensor
+    accepted_steps: torch.Tensor
+    vel_norm: torch.Tensor
+    pos_norm: torch.Tensor
+    state_finite: torch.Tensor
+    med_depth: torch.Tensor
+
+
+class StaticParams(NamedTuple):
+    gravity: torch.Tensor
+    ex_t: torch.Tensor
+    ex_q: torch.Tensor
+    sqrt_info_proj: torch.Tensor
+    cauchy_scale: torch.Tensor
+    init_depth: torch.Tensor
+    min_parallax_norm: torch.Tensor
+    noise: torch.Tensor
+    td_enable: torch.Tensor
+    td_max: torch.Tensor
+    td_forget: torch.Tensor
+    td_rw_info: torch.Tensor
+
+
+def make_params(cfg: VIOConfig, *, dtype=torch.float32, device="cpu") -> StaticParams:
+    if cfg.estimator.estimate_td:
+        raise NotImplementedError("estimate_td is not ported yet")
+    cam, est = cfg.camera, cfg.estimator
+
+    def t(v):
+        return torch.as_tensor(v, dtype=dtype, device=device)
+
+    return StaticParams(
+        gravity=t(est.gravity), ex_t=t(cam.t_ic_vec),
+        ex_q=rot.rot_to_quat(t(cam.r_ic_mat)),
+        sqrt_info_proj=t(cam.focal_length / 1.5), cauchy_scale=t(est.cauchy_scale),
+        init_depth=t(est.init_depth),
+        min_parallax_norm=t(est.min_parallax / cam.focal_length),
+        noise=pre.make_noise_cov(est.acc_n, est.gyr_n, est.acc_w, est.gyr_w,
+                                 dtype=dtype, device=device),
+        td_enable=t(0.0), td_max=t(est.td_max), td_forget=t(est.td_prior_forget),
+        td_rw_info=t(est.td_rw_info),
+    )
+
+
+def solver_params(p: StaticParams) -> SolverParams:
+    return SolverParams(gravity=p.gravity, sqrt_info_proj=p.sqrt_info_proj,
+                        cauchy_scale=p.cauchy_scale, init_depth=p.init_depth,
+                        td_enable=p.td_enable, td_max=p.td_max,
+                        td_rw_info=p.td_rw_info)
+
+
+def init_state(cfg: VIOConfig, params: StaticParams) -> EstimatorState:
+    """clearState() parity."""
+    dtype, dev = params.gravity.dtype, params.gravity.device
+    td0 = cfg.estimator.td_init
+    return EstimatorState(
+        window=init_window(cfg.estimator.max_imu_per_interval, dtype=dtype, device=dev),
+        table=init_feature_table(cfg.estimator.max_features, dtype=dtype, device=dev),
+        prior=zero_prior(params.ex_t, params.ex_q, td=td0),
+        prev_acc=torch.zeros(3, dtype=dtype, device=dev),
+        prev_gyr=torch.zeros(3, dtype=dtype, device=dev),
+        frame_count=torch.zeros((), dtype=torch.int32, device=dev),
+        first_imu_seen=torch.zeros((), dtype=torch.bool, device=dev),
+        td=torch.as_tensor(td0, dtype=dtype, device=dev),
+    )
+
+
+def _row(pre_all: pre.Preintegration, i) -> pre.Preintegration:
+    return pre.Preintegration(*[leaf[i] for leaf in pre_all])
+
+
+def _set_row(pre_all: pre.Preintegration, i, one: pre.Preintegration):
+    out = []
+    for full, val in zip(pre_all, one):
+        full = full.clone()
+        full[i] = val
+        out.append(full)
+    return pre.Preintegration(*out)
+
+
+def ingest_imu(state: EstimatorState, inp: FrameInput, params: StaticParams) -> EstimatorState:
+    """processIMU + propagateIMUState for the current slot."""
+    w = state.window
+    fc = torch.clamp(state.frame_count, 0, W - 1).long()
+    m = w.imu_dt.shape[1]
+    has_any = inp.imu_cnt > 0
+    prev_acc = torch.where(state.first_imu_seen, state.prev_acc, inp.imu_acc[0])
+    prev_gyr = torch.where(state.first_imu_seen, state.prev_gyr, inp.imu_gyr[0])
+
+    slot_pre = _row(w.pre, fc)
+    has_prev = w.imu_cnt[fc] > 0
+    fresh = pre.identity_preintegration(w.ba[fc], w.bg[fc])
+    carry_pre = tree_where(has_prev, slot_pre, fresh)
+    acc0 = torch.where(has_prev, w.imu_acc0[fc], prev_acc)
+    gyr0 = torch.where(has_prev, w.imu_gyr0[fc], prev_gyr)
+    last_idx = torch.clamp(w.imu_cnt[fc].long() - 1, 0, m - 1)
+    stream_acc = torch.where(has_prev, w.imu_acc[fc, last_idx], acc0)
+    stream_gyr = torch.where(has_prev, w.imu_gyr[fc, last_idx], gyr0)
+
+    new_pre = pre.continue_preintegration_parallel(
+        carry_pre, stream_acc, stream_gyr, inp.imu_dt, inp.imu_acc,
+        inp.imu_gyr, inp.imu_cnt, params.noise)
+    skip = state.frame_count == 0
+    new_pre = tree_where(skip, slot_pre, new_pre)
+
+    ar = torch.arange(m, device=fc.device)
+    idx = w.imu_cnt[fc].long() + ar
+    ok = (ar < inp.imu_cnt) & (idx < m) & ~skip
+    widx = torch.where(ok, idx, m)
+
+    def append(buf, vals):
+        row = torch.cat([buf[fc], torch.zeros_like(buf[fc][:1])], dim=0)
+        row[widx] = vals
+        out = buf.clone()
+        out[fc] = row[:m]
+        return out
+
+    imu_dt = append(w.imu_dt, inp.imu_dt)
+    imu_acc = append(w.imu_acc, inp.imu_acc)
+    imu_gyr = append(w.imu_gyr, inp.imu_gyr)
+    new_cnt = torch.where(skip, w.imu_cnt[fc],
+                          torch.clamp(w.imu_cnt[fc] + inp.imu_cnt, max=m))
+    imu_cnt = w.imu_cnt.clone()
+    imu_cnt[fc] = new_cnt.to(torch.int32)
+    imu_acc0 = w.imu_acc0.clone()
+    imu_acc0[fc] = acc0
+    imu_gyr0 = w.imu_gyr0.clone()
+    imu_gyr0[fc] = gyr0
+
+    p_new, q_new, v_new, _, _ = pre.propagate_state_parallel(
+        w.p[fc], w.q[fc], w.v[fc], w.ba[fc], w.bg[fc], prev_acc, prev_gyr,
+        inp.imu_dt, inp.imu_acc, inp.imu_gyr, inp.imu_cnt, params.gravity)
+    good = (torch.all(torch.isfinite(p_new)) & torch.all(torch.isfinite(q_new))
+            & torch.all(torch.isfinite(v_new)) & ~skip)
+    p_w, q_w, v_w = w.p.clone(), w.q.clone(), w.v.clone()
+    p_w[fc] = torch.where(good, p_new, w.p[fc])
+    q_w[fc] = torch.where(good, q_new, w.q[fc])
+    v_w[fc] = torch.where(good, v_new, w.v[fc])
+
+    last_i = torch.clamp(inp.imu_cnt.long() - 1, 0, m - 1)
+    prev_acc = torch.where(has_any, inp.imu_acc[last_i], prev_acc)
+    prev_gyr = torch.where(has_any, inp.imu_gyr[last_i], prev_gyr)
+    window = w._replace(p=p_w, q=q_w, v=v_w, pre=_set_row(w.pre, fc, new_pre),
+                        imu_dt=imu_dt, imu_acc=imu_acc, imu_gyr=imu_gyr,
+                        imu_cnt=imu_cnt, imu_acc0=imu_acc0, imu_gyr0=imu_gyr0)
+    return state._replace(window=window, prev_acc=prev_acc, prev_gyr=prev_gyr,
+                          first_imu_seen=state.first_imu_seen | has_any)
+
+
+def bookkeeping_step(state: EstimatorState, inp: FrameInput,
+                     params: StaticParams):
+    """IMU ingestion + feature add + keyframe decision -> (state, is_kf)."""
+    state = ingest_imu(state, inp, params)
+    fc = torch.clamp(state.frame_count, 0, W - 1).long()
+    ts = state.window.ts.clone()
+    ts[fc] = inp.ts
+    add = ft.add_and_check_parallax(state.table, inp.ids, inp.obs, inp.uv,
+                                    inp.vel, inp.valid, fc,
+                                    params.min_parallax_norm)
+    return (state._replace(window=state.window._replace(ts=ts), table=add.table),
+            add.is_keyframe)
+
+
+def _shl(a):
+    return torch.cat([a[1:], a[-1:]], dim=0)
+
+
+def _slide_window_old(w: WindowState, prev_acc, prev_gyr) -> WindowState:
+    """Shift left; open a fresh interval at slot W-1."""
+    new = WindowState(*[_shl(a) if not isinstance(a, pre.Preintegration)
+                        else pre.Preintegration(*[_shl(x) for x in a]) for a in w])
+    fresh = pre.identity_preintegration(new.ba[W - 1], new.bg[W - 1])
+    imu_dt, imu_acc, imu_gyr = new.imu_dt.clone(), new.imu_acc.clone(), new.imu_gyr.clone()
+    imu_cnt, imu_acc0, imu_gyr0 = new.imu_cnt.clone(), new.imu_acc0.clone(), new.imu_gyr0.clone()
+    imu_dt[W - 1] = 0.0
+    imu_acc[W - 1] = 0.0
+    imu_gyr[W - 1] = 0.0
+    imu_cnt[W - 1] = 0
+    imu_acc0[W - 1] = prev_acc
+    imu_gyr0[W - 1] = prev_gyr
+    return new._replace(pre=_set_row(new.pre, W - 1, fresh), imu_dt=imu_dt,
+                        imu_acc=imu_acc, imu_gyr=imu_gyr, imu_cnt=imu_cnt,
+                        imu_acc0=imu_acc0, imu_gyr0=imu_gyr0)
+
+
+def _slide_window_new(w: WindowState, prev_acc, prev_gyr, noise) -> WindowState:
+    """Merge the newest general frame into the previous interval."""
+    m = w.imu_dt.shape[1]
+    pre9 = _row(w.pre, W - 2)
+    cnt9 = w.imu_cnt[W - 2].long()
+    last9 = torch.clamp(cnt9 - 1, 0, m - 1)
+    stream_acc = torch.where(cnt9 > 0, w.imu_acc[W - 2, last9], w.imu_acc0[W - 2])
+    stream_gyr = torch.where(cnt9 > 0, w.imu_gyr[W - 2, last9], w.imu_gyr0[W - 2])
+    merged = pre.continue_preintegration_parallel(
+        pre9, stream_acc, stream_gyr, w.imu_dt[W - 1], w.imu_acc[W - 1],
+        w.imu_gyr[W - 1], w.imu_cnt[W - 1], noise)
+    ar = torch.arange(m, device=cnt9.device)
+    idx = cnt9 + ar
+    ok = (ar < w.imu_cnt[W - 1]) & (idx < m)
+    widx = torch.where(ok, idx, m)
+
+    def merge(buf):
+        row = torch.cat([buf[W - 2], torch.zeros_like(buf[W - 2][:1])], dim=0)
+        row[widx] = buf[W - 1]
+        out = buf.clone()
+        out[W - 2] = row[:m]
+        out[W - 1] = 0.0
+        return out
+
+    def move(a):
+        a = a.clone()
+        a[W - 2] = a[W - 1]
+        return a
+
+    imu_cnt = w.imu_cnt.clone()
+    imu_cnt[W - 2] = torch.clamp(cnt9 + w.imu_cnt[W - 1], max=m).to(torch.int32)
+    imu_cnt[W - 1] = 0
+    imu_acc0, imu_gyr0 = w.imu_acc0.clone(), w.imu_gyr0.clone()
+    imu_acc0[W - 1] = prev_acc
+    imu_gyr0[W - 1] = prev_gyr
+    new = w._replace(ts=move(w.ts), p=move(w.p), q=move(w.q), v=move(w.v),
+                     ba=move(w.ba), bg=move(w.bg),
+                     pre=_set_row(w.pre, W - 2, merged),
+                     imu_dt=merge(w.imu_dt), imu_acc=merge(w.imu_acc),
+                     imu_gyr=merge(w.imu_gyr), imu_cnt=imu_cnt,
+                     imu_acc0=imu_acc0, imu_gyr0=imu_gyr0)
+    fresh = pre.identity_preintegration(new.ba[W - 1], new.bg[W - 1])
+    return new._replace(pre=_set_row(new.pre, W - 1, fresh))
+
+
+def _cam_pose(p, q, ex_t, ex_q):
+    r_wb = rot.quat_to_rot(q)
+    return r_wb @ rot.quat_to_rot(ex_q), p + r_wb @ ex_t
+
+
+def solve_and_slide(state: EstimatorState, is_kf: bool, params: StaticParams,
+                    num_iterations: int):
+    """Triangulate, optimize, marginalize, slide. Returns (state, body_p,
+    body_q, diag); the pose is the newest window frame."""
+    is_kf = bool(is_kf)
+    w = state.window
+    table = ft.triangulate(state.table, w.p, w.q, params.ex_t, params.ex_q,
+                           params.init_depth, td=state.td)
+    sp = solver_params(params)
+    w, table, res, culled_ids = lm.optimize(w, table, state.prior, params.ex_t,
+                                            params.ex_q, sp, num_iterations,
+                                            td0=state.td)
+    td = state.td
+    x_post = XState(p=w.p, q=w.q, v=w.v, ba=w.ba, bg=w.bg, lam=res.x.lam, td=td)
+    if is_kf:
+        prior = marginalization.marginalize_old(
+            x_post, table, w, sqrt_info_from_cov(w.pre.cov[1:]), state.prior,
+            params.ex_t, params.ex_q, sp)
+    else:
+        prior = marginalization.marginalize_new(x_post, state.prior,
+                                                params.ex_t, params.ex_q)
+    # No-op with td disabled (its prior column is identically zero).
+    J0 = prior.J0.clone()
+    J0[:, layout.TD_COL] = J0[:, layout.TD_COL] * params.td_forget
+    prior = prior._replace(J0=J0)
+
+    r0_wc, t0_wc = _cam_pose(w.p[0], w.q[0], params.ex_t, params.ex_q)
+    r1_wc, t1_wc = _cam_pose(w.p[1], w.q[1], params.ex_t, params.ex_q)
+    if is_kf:
+        w2 = _slide_window_old(w, state.prev_acc, state.prev_gyr)
+        table2 = ft.slide_old(table, True, r0_wc, t0_wc, r1_wc, t1_wc,
+                              params.init_depth, td=td)
+    else:
+        w2 = _slide_window_new(w, state.prev_acc, state.prev_gyr, params.noise)
+        table2 = ft.slide_new(table)
+    table2 = ft.remove_failures(table2)
+
+    solved = (table.fid >= 0) & (table.solve_flag == 1) & (table.depth > 0)
+    dep_sorted, _ = torch.sort(torch.where(solved, table.depth,
+                                           torch.full_like(table.depth, float("inf"))))
+    n_solved = torch.sum(solved)
+    med_depth = torch.where(
+        n_solved > 0,
+        dep_sorted[torch.clamp(torch.div(n_solved, 2, rounding_mode="floor"), 0,
+                               table.depth.shape[0] - 1)],
+        torch.zeros_like(dep_sorted[0]))
+
+    fc_cur = torch.clamp(state.frame_count, 0, W - 1).long()
+    cur_mask = state.table.mask[:, fc_cur]
+    n_tracked = torch.sum((state.table.fid >= 0) & cur_mask
+                          & (state.table.used_num >= 2)).to(torch.int32)
+    diag = StepDiag(
+        is_keyframe=torch.as_tensor(is_kf, device=w.p.device),
+        culled_ids=culled_ids, last_track_num=n_tracked,
+        solver_cost0=res.cost0, solver_cost=res.cost,
+        accepted_steps=res.accepted,
+        vel_norm=torch.linalg.vector_norm(w.v[W - 1]),
+        pos_norm=torch.linalg.vector_norm(w.p[W - 1]),
+        state_finite=(torch.all(torch.isfinite(w.p)) & torch.all(torch.isfinite(w.v))
+                      & torch.all(torch.isfinite(w.q))),
+        med_depth=med_depth,
+    )
+    new_state = state._replace(window=w2, table=table2, prior=prior, td=td)
+    return new_state, w.p[W - 1], w.q[W - 1], diag
+
+
+def repropagate_window(window: WindowState, ba, bg, noise) -> WindowState:
+    """Re-run every slot's preintegration with new linearization biases."""
+    n = window.imu_acc0.shape[0]
+    new_pre = pre.preintegrate_parallel(
+        window.imu_acc0, window.imu_gyr0, window.imu_dt, window.imu_acc,
+        window.imu_gyr, window.imu_cnt, ba.expand(n, 3), bg.expand(n, 3), noise)
+    return window._replace(pre=new_pre)
+
+
+def apply_initialization(state: EstimatorState, p_cam, q_body, v_world, bg,
+                         gravity_l, scale, params: StaticParams):
+    """Write the SfM/VI-alignment solution into the window and landmark
+    bank, then rotate into the gravity-aligned, yaw-zeroed world frame.
+    Returns (state, world gravity)."""
+    dtype, dev = state.window.p.dtype, state.window.p.device
+    w = state.window._replace(p=p_cam.to(dtype), q=q_body.to(dtype),
+                              ba=torch.zeros((W, 3), dtype=dtype, device=dev),
+                              bg=bg.to(dtype).repeat(W, 1))
+    table = state.table
+    used = table.fid >= 0
+    table = table._replace(
+        depth=torch.where(used, torch.full_like(table.depth, -1.0), table.depth),
+        solve_flag=torch.where(used, torch.zeros_like(table.solve_flag), table.solve_flag))
+    zero3 = torch.zeros(3, dtype=dtype, device=dev)
+    table = ft.triangulate(table, w.p, w.q, zero3, params.ex_q, params.init_depth)
+    w = repropagate_window(w, zero3, bg.to(dtype), params.noise)
+
+    r_wb = rot.quat_to_rot(w.q)
+    p_metric = scale * w.p - torch.einsum("wij,j->wi", r_wb, params.ex_t)
+    p_metric = p_metric - p_metric[0:1]
+    w = w._replace(p=p_metric.to(dtype), v=v_world.to(dtype))
+    elig = eligible_mask(table)
+    table = table._replace(depth=torch.where(elig, table.depth * scale, table.depth))
+
+    g_l = gravity_l.to(dtype)
+    r0 = rot.g2r(g_l)
+    yaw = rot.r2ypr(r0 @ rot.quat_to_rot(w.q[0]))[0]
+    zero = torch.zeros_like(yaw)
+    r0 = rot.ypr2r(torch.stack([-yaw, zero, zero])) @ r0
+    g_world = r0 @ g_l
+    q_r0 = rot.rot_to_quat(r0)
+    w = w._replace(p=w.p @ r0.T,
+                   q=rot.quat_normalize(rot.quat_mul(q_r0[None, :], w.q)),
+                   v=w.v @ r0.T)
+    return state._replace(window=w, table=table), g_world
+
+
+def initial_advance_or_slide(state: EstimatorState, is_kf: bool,
+                             params: StaticParams) -> EstimatorState:
+    """Advance frame_count while the window fills; once full (init attempt
+    failed), slide by parallax without marginalization."""
+    w = state.window
+    fc = int(state.frame_count)
+    if fc < W - 1:
+        nfc = fc + 1
+
+        def seed(a):
+            a = a.clone()
+            a[nfc] = a[fc]
+            return a
+
+        w2 = w._replace(p=seed(w.p), q=seed(w.q), v=seed(w.v), ba=seed(w.ba),
+                        bg=seed(w.bg))
+        return state._replace(window=w2, frame_count=state.frame_count + 1)
+    if bool(is_kf):
+        r0_wc, t0_wc = _cam_pose(w.p[0], w.q[0], params.ex_t, params.ex_q)
+        r1_wc, t1_wc = _cam_pose(w.p[1], w.q[1], params.ex_t, params.ex_q)
+        w2 = _slide_window_old(w, state.prev_acc, state.prev_gyr)
+        t2 = ft.slide_old(state.table, False, r0_wc, t0_wc, r1_wc, t1_wc,
+                          params.init_depth, td=state.td)
+    else:
+        w2 = _slide_window_new(w, state.prev_acc, state.prev_gyr, params.noise)
+        t2 = ft.slide_new(state.table)
+    return state._replace(window=w2, table=t2)

@@ -1,0 +1,134 @@
+"""Square-root marginalization (torch twin of the default path of
+mobile_slam_tpu.factors.marginalization, SQRT_MARGIN_OLD/NEW = True).
+
+* margin-old: fresh factors (first IMU + frame-0-anchored projections) are
+  squared once, their dropped depths Schur-eliminated and the result
+  eigen-factorized into rows; the prior's raw rows [J0 | r0 + J0 dx] are
+  stacked under them, the frame-0 block is removed by Householder
+  reflections and the stack recompressed by one QR.
+* margin-new: the pose of slot W-2 is removed from (J0, r) by six
+  Householder reflections, unless the prior does not involve it.
+
+The dense-eigh A/B path (``enable_sqrt_pipeline(False)``) is not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mobile_slam_tpu.config import NUM_SLOTS
+from mobile_slam_tpu.solver import layout
+from mobile_slam_tpu_torch.models.state import FeatureTable, WindowState, eligible_mask
+from mobile_slam_tpu_torch.solver import assembly
+from mobile_slam_tpu_torch.solver.assembly import Prior, SolverParams, XState
+from mobile_slam_tpu_torch.utils.linalg import eigh64, tree_where
+
+W = NUM_SLOTS
+S = layout.S
+REL_EIG_EPS = 1e-4
+
+
+def _perm(kind: str, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(layout.shift_permutation(kind, "float64"),
+                           dtype=like.dtype, device=like.device)
+
+
+def _eliminate_lambdas(H, g, H_sl, H_ll, g_l, drop_mask):
+    w = drop_mask.to(H.dtype)
+    inv = torch.where(H_ll > 1e-10, 1.0 / torch.clamp(H_ll, min=1e-10),
+                      torch.zeros_like(H_ll)) * w
+    return H - (H_sl * inv[None, :]) @ H_sl.T, g - H_sl @ (inv * g_l)
+
+
+def _sqrt_factorize_dense(H, g):
+    """H = J0ᵀJ0, g = J0ᵀr0 by a thresholded eigendecomposition of the
+    diagonally equilibrated H."""
+    H = 0.5 * (H + H.T)
+    diag = torch.diagonal(H)
+    d = torch.sqrt(torch.where(diag <= 1e-18, torch.ones_like(diag), diag))
+    Hn = H / (d[:, None] * d[None, :])
+    evals, evecs = eigh64(Hn)
+    emax = torch.clamp(torch.max(evals), min=1e-20)
+    keep = evals > REL_EIG_EPS * emax
+    sqrt_e = torch.where(keep, torch.sqrt(torch.clamp(evals, min=1e-20)),
+                         torch.zeros_like(evals))
+    inv_sqrt_e = torch.where(keep, 1.0 / torch.clamp(sqrt_e, min=1e-30),
+                             torch.zeros_like(evals))
+    J0 = sqrt_e[:, None] * (evecs.T * d[None, :])
+    r0 = inv_sqrt_e * (evecs.T @ (g / d))
+    return J0, r0
+
+
+def _householder_eliminate(M: torch.Tensor, cols) -> torch.Tensor:
+    """Triangularize ``cols`` of M = [J | r] with one Householder reflection
+    each, drop the first len(cols) rows and append as many zero rows."""
+    n = len(cols)
+    rows = torch.arange(M.shape[0], device=M.device)
+    for k, c in enumerate(cols):
+        x = torch.where(rows < k, torch.zeros_like(M[:, c]), M[:, c])
+        sigma = torch.sqrt(torch.sum(x * x))
+        sgn = torch.where(x[k] >= 0, 1.0, -1.0).to(M.dtype)
+        v = x.clone()
+        v[k] = v[k] + sgn * sigma
+        vtv = torch.sum(v * v)
+        beta = torch.where(sigma > 1e-20, 2.0 / torch.clamp(vtv, min=1e-38),
+                           torch.zeros_like(vtv))
+        M = M - beta * torch.outer(v, v @ M)
+    out = M[n:]
+    return torch.cat([out, torch.zeros((n,) + out.shape[1:], dtype=M.dtype,
+                                       device=M.device)], dim=0)
+
+
+def _permuted_linearization(kind: str, x: XState, ex_t, ex_q) -> dict:
+    if kind == "old":
+        sl = [min(k + 1, W - 1) for k in range(W)]
+    else:
+        sl = list(range(W - 2)) + [W - 1, W - 1]
+    sl = torch.as_tensor(sl, device=x.p.device)
+    return dict(p0=x.p[sl], q0=x.q[sl], v0=x.v[sl], ba0=x.ba[sl],
+                bg0=x.bg[sl], ex_t0=ex_t, ex_q0=ex_q, td0=x.td)
+
+
+def marginalize_old(x: XState, table: FeatureTable, window: WindowState,
+                    imu_sqrt_info, prior: Prior, ex_t, ex_q,
+                    params: SolverParams) -> Prior:
+    """MARGIN_OLD_KEYFRAME: drop frame 0 and its anchored depths."""
+    dtype, dev = x.p.dtype, x.p.device
+    elig = eligible_mask(table)
+    imu_valid = torch.zeros(W - 1, dtype=torch.bool, device=dev)
+    imu_valid[0] = True
+    imu_valid = imu_valid & (window.pre.sum_dt[1:] < 10.0) & (window.imu_cnt[1:] > 0)
+    proj_valid = assembly.proj_valid_mask(table) & (table.start == 0)[:, None]
+    drop_lam = elig & (table.start == 0)
+    idx0 = [int(i) for i in layout.frame_block_indices(0)]
+
+    eqs = assembly.build_normal_eqs(
+        x, table, window.pre, imu_sqrt_info, imu_valid, prior,
+        torch.zeros((S, S), dtype=dtype, device=dev), ex_t, ex_q, params,
+        proj_valid, use_prior=False, include_td_rw=False)
+    H_f, g_f = _eliminate_lambdas(eqs.H_ss, eqs.g_s, eqs.H_sl, eqs.H_ll,
+                                  eqs.g_l, drop_lam)
+    R_f, r_f = _sqrt_factorize_dense(H_f, g_f)
+    r_pr = prior.r0 + prior.J0 @ assembly.prior_dx(prior, x, ex_t, ex_q)
+    M = torch.cat([torch.cat([R_f, r_f[:, None]], dim=1),
+                   torch.cat([prior.J0, r_pr[:, None]], dim=1)], dim=0)
+    M = _householder_eliminate(M, idx0)
+    M[:, idx0] = 0.0                                   # clear roundoff
+    R = torch.linalg.qr(M, mode="r")[1]                # (S+1, S+1)
+    J0 = R[:S, :S] @ _perm("old", M).T
+    return Prior(J0=J0, r0=R[:S, S].clone(),
+                 **_permuted_linearization("old", x, ex_t, ex_q))
+
+
+def marginalize_new(x: XState, prior: Prior, ex_t, ex_q) -> Prior:
+    """MARGIN_NEW_GENERAL_FRAME: drop pose W-2 from the prior alone."""
+    c0 = layout.pose_col(W - 2)
+    coupled = torch.sum(torch.abs(prior.J0[:, c0:c0 + 6])) > 0
+    r = prior.r0 + prior.J0 @ assembly.prior_dx(prior, x, ex_t, ex_q)
+    M = torch.cat([prior.J0, r[:, None]], dim=1)
+    M = _householder_eliminate(M, list(range(c0, c0 + 6)))
+    J2 = M[:, :S].clone()
+    J2[:, c0:c0 + 6] = 0.0
+    new_prior = Prior(J0=J2 @ _perm("new", M).T, r0=M[:, S].clone(),
+                      **_permuted_linearization("new", x, ex_t, ex_q))
+    return tree_where(coupled, new_prior, prior)

@@ -1,0 +1,475 @@
+"""Pyramidal Lucas-Kanade tracking: plain PyTorch versions, the CUDA
+kernel wrappers and the device dispatch.
+
+The three public operations dispatch on the device of their inputs:
+
+* ``track_pyramidal``  — coarse-to-fine KLT over a pyramid (K1),
+* ``refine_template``  — zero-mean KLT of stored templates (K2),
+* ``extract_patches``  — template + Scharr gradient patches (K3).
+
+A CPU tensor goes to the plain version (``*_ref``); a CUDA tensor launches
+the hand-written kernel of ``csrc/lk_kernels.cu`` or raises. There is no
+fallback between the two. Both compute the function of
+``mobile_slam_tpu.ops.lk_pallas`` in float32: each level is replicate-padded
+by ``half + 2`` and every block origin is clamped in padded coordinates, so
+gradients at the border follow replicate (not ops/lk.py's reflect-101)
+semantics; gradients are Scharr on the fetched block; per-point early
+exit is the masked fixed-count loop that freezes converged points.
+
+Each wrapper adds one to ``launch_counts[name]`` where it launches its
+kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+F32 = torch.float32
+
+
+class LKParams(NamedTuple):
+    window: int = 21
+    levels: int = 3
+    iters: int = 30
+    eps: float = 0.01
+    min_eig_threshold: float = 1e-4
+
+
+launch_counts = {"track_pyramidal": 0, "refine_template": 0,
+                 "extract_patches": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (vectorized over the K point slots)
+# ---------------------------------------------------------------------------
+
+def _pad(img: torch.Tensor, pad: int) -> torch.Tensor:
+    """Replicate-pad an (H, W) image by ``pad`` on all four sides."""
+    return F.pad(img[None, None].to(F32), (pad, pad, pad, pad),
+                 mode="replicate")[0, 0]
+
+
+def _floor_int(x: torch.Tensor) -> torch.Tensor:
+    # NaN / huge values map to an arbitrary integer; every caller clamps.
+    return torch.floor(torch.nan_to_num(x, nan=0.0, posinf=1e9, neginf=-1e9)).long()
+
+
+def _gather_block(imgp: torch.Tensor, by: torch.Tensor, bx: torch.Tensor,
+                  rows: int, cols: int) -> torch.Tensor:
+    r = torch.arange(rows, device=imgp.device)
+    c = torch.arange(cols, device=imgp.device)
+    return imgp[by[:, None, None] + r[None, :, None],
+                bx[:, None, None] + c[None, None, :]]
+
+
+def _bilinear_block(block: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
+                    win: int) -> torch.Tensor:
+    """(K, win, win) bilinear patches from (K, >=win+1, >=win+1) blocks."""
+    fx = fx[:, None, None]
+    fy = fy[:, None, None]
+    w00 = (1.0 - fx) * (1.0 - fy)
+    w01 = fx * (1.0 - fy)
+    w10 = (1.0 - fx) * fy
+    w11 = fx * fy
+    return (w00 * block[:, 0:win, 0:win] + w01 * block[:, 0:win, 1:win + 1]
+            + w10 * block[:, 1:win + 1, 0:win]
+            + w11 * block[:, 1:win + 1, 1:win + 1])
+
+
+def _scharr_on_block(tb: torch.Tensor, n: int):
+    """Scharr x/y (/32) of the interior (n, n) of (K, n+2, n+2) blocks."""
+    right = (3.0 * tb[:, 0:n, 2:n + 2] + 10.0 * tb[:, 1:n + 1, 2:n + 2]
+             + 3.0 * tb[:, 2:n + 2, 2:n + 2])
+    left = (3.0 * tb[:, 0:n, 0:n] + 10.0 * tb[:, 1:n + 1, 0:n]
+            + 3.0 * tb[:, 2:n + 2, 0:n])
+    bot = (3.0 * tb[:, 2:n + 2, 0:n] + 10.0 * tb[:, 2:n + 2, 1:n + 1]
+           + 3.0 * tb[:, 2:n + 2, 2:n + 2])
+    top = (3.0 * tb[:, 0:n, 0:n] + 10.0 * tb[:, 0:n, 1:n + 1]
+           + 3.0 * tb[:, 0:n, 2:n + 2])
+    return (right - left) / 32.0, (bot - top) / 32.0
+
+
+def _template(imgp: torch.Tensor, tx: torch.Tensor, ty: torch.Tensor,
+              win: int, pad: int):
+    """Template + gradient patches (K, win, win) at subpixel (tx, ty) of a
+    padded image."""
+    hp, wp = imgp.shape
+    half = (win - 1) // 2
+    tbx = torch.clamp(_floor_int(tx) - half - 1 + pad, 0, wp - (win + 3))
+    tby = torch.clamp(_floor_int(ty) - half - 1 + pad, 0, hp - (win + 3))
+    ftx = tx - torch.floor(tx)
+    fty = ty - torch.floor(ty)
+    tb = _gather_block(imgp, tby, tbx, win + 3, win + 3)
+    gxb, gyb = _scharr_on_block(tb, win + 1)
+    t = _bilinear_block(tb[:, 1:win + 2, 1:win + 2], ftx, fty, win)
+    return t, _bilinear_block(gxb, ftx, fty, win), _bilinear_block(gyb, ftx, fty, win)
+
+
+def _sample(imgp: torch.Tensor, x: torch.Tensor, y: torch.Tensor, win: int,
+            pad: int) -> torch.Tensor:
+    """(K, win, win) bilinear window at subpixel (x, y), origin clamped in
+    padded coordinates."""
+    hp, wp = imgp.shape
+    half = (win - 1) // 2
+    bx = torch.clamp(_floor_int(x) - half + pad, 0, wp - (win + 1))
+    by = torch.clamp(_floor_int(y) - half + pad, 0, hp - (win + 1))
+    nb = _gather_block(imgp, by, bx, win + 1, win + 1)
+    return _bilinear_block(nb, x - torch.floor(x), y - torch.floor(y), win)
+
+
+def _normal_matrix(gx, gy, win2: float, thr: float):
+    gxx = torch.sum(gx * gx, dim=(1, 2))
+    gxy = torch.sum(gx * gy, dim=(1, 2))
+    gyy = torch.sum(gy * gy, dim=(1, 2))
+    det = gxx * gyy - gxy * gxy
+    tr = gxx + gyy
+    min_eig = 0.5 * (tr - torch.sqrt(torch.clamp(tr * tr - 4.0 * det, min=0.0))) / win2
+    invertible = min_eig > thr
+    inv_det = torch.where(torch.abs(det) > 1e-12, 1.0 / det, torch.zeros_like(det))
+    return gxx, gxy, gyy, invertible, inv_det
+
+
+def _inside(x, y, h: int, w: int):
+    return ((x >= 0.0) & (x < w - 1.0) & (y >= 0.0) & (y < h - 1.0)
+            & torch.isfinite(x) & torch.isfinite(y))
+
+
+def track_pyramidal_ref(prev_pyr, next_pyr, pts: torch.Tensor,
+                        active: torch.Tensor, params: LKParams):
+    """Plain version of K1. Returns (pos (K, 2) float32, ok (K,) bool)."""
+    win = params.window
+    half = (win - 1) // 2
+    pad = half + 2
+    win2 = float(win * win)
+    eps2 = params.eps * params.eps
+    n_lvl = len(prev_pyr)
+    px = pts[:, 0].to(F32)
+    py = pts[:, 1].to(F32)
+    act = active.bool()
+    top = float(2 ** (n_lvl - 1))
+    cx, cy = px / top, py / top
+    ok = torch.ones_like(act)
+    for lvl in range(n_lvl - 1, -1, -1):
+        h, w = prev_pyr[lvl].shape
+        prev_p = _pad(prev_pyr[lvl], pad)
+        next_p = _pad(next_pyr[lvl], pad)
+        scale = float(2 ** lvl)
+        t, gx, gy = _template(prev_p, px / scale, py / scale, win, pad)
+        gxx, gxy, gyy, invertible, inv_det = _normal_matrix(
+            gx, gy, win2, params.min_eig_threshold)
+        conv = ~(act & invertible)
+        for _ in range(params.iters):
+            if bool(conv.all()):
+                break
+            diff = _sample(next_p, cx, cy, win, pad) - t
+            b1 = torch.sum(diff * gx, dim=(1, 2))
+            b2 = torch.sum(diff * gy, dim=(1, 2))
+            dx = -(gyy * b1 - gxy * b2) * inv_det
+            dy = -(gxx * b2 - gxy * b1) * inv_det
+            step_conv = dx * dx + dy * dy <= eps2
+            cx = torch.where(conv, cx, cx + dx)
+            cy = torch.where(conv, cy, cy + dy)
+            conv = conv | step_conv
+        ok = ok & invertible & _inside(cx, cy, h, w)
+        if lvl > 0:
+            cx, cy = cx * 2.0, cy * 2.0
+    pos = torch.stack([torch.where(act, cx, px), torch.where(act, cy, py)], dim=-1)
+    return pos, act & ok
+
+
+def refine_template_ref(img: torch.Tensor, t_patch: torch.Tensor,
+                        gx: torch.Tensor, gy: torch.Tensor, pos0: torch.Tensor,
+                        active: torch.Tensor, window: int, iters: int,
+                        eps: float, max_shift: float):
+    """Plain version of K2. Returns (pos (K, 2), ok (K,), resid (K,)),
+    float32."""
+    k = pos0.shape[0]
+    win = window
+    pad = (win - 1) // 2 + 2
+    win2 = float(win * win)
+    eps2 = eps * eps
+    h, w = img.shape
+    imgp = _pad(img, pad)
+    t3 = t_patch.reshape(k, win, win).to(F32)
+    gx3 = gx.reshape(k, win, win).to(F32)
+    gy3 = gy.reshape(k, win, win).to(F32)
+    x0 = pos0[:, 0].to(F32)
+    y0 = pos0[:, 1].to(F32)
+    act = active.bool()
+    t_zm = t3 - (torch.sum(t3, dim=(1, 2)) / win2)[:, None, None]
+    gxx, gxy, gyy, invertible, inv_det = _normal_matrix(gx3, gy3, win2, 1e-4)
+
+    cx, cy = x0, y0
+    conv = ~(act & invertible)
+    for _ in range(iters):
+        if bool(conv.all()):
+            break
+        c = _sample(imgp, cx, cy, win, pad)
+        c_zm = c - (torch.sum(c, dim=(1, 2)) / win2)[:, None, None]
+        diff = c_zm - t_zm
+        b1 = torch.sum(diff * gx3, dim=(1, 2))
+        b2 = torch.sum(diff * gy3, dim=(1, 2))
+        dx = -(gyy * b1 - gxy * b2) * inv_det
+        dy = -(gxx * b2 - gxy * b1) * inv_det
+        ox, oy = (cx + dx) - x0, (cy + dy) - y0
+        r = torch.sqrt(ox * ox + oy * oy)
+        s = torch.where(r > max_shift, max_shift / torch.clamp(r, min=1e-9),
+                        torch.ones_like(r))
+        step_conv = dx * dx + dy * dy <= eps2
+        cx = torch.where(conv, cx, x0 + ox * s)
+        cy = torch.where(conv, cy, y0 + oy * s)
+        conv = conv | step_conv
+
+    c = _sample(imgp, cx, cy, win, pad)
+    c_zm = c - (torch.sum(c, dim=(1, 2)) / win2)[:, None, None]
+    resid = torch.sum(torch.abs(c_zm - t_zm), dim=(1, 2)) / win2
+    ok = act & invertible & _inside(cx, cy, h, w)
+    pos = torch.stack([torch.where(act, cx, x0), torch.where(act, cy, y0)], dim=-1)
+    return pos, ok, torch.where(act, resid, torch.zeros_like(resid))
+
+
+def extract_patches_ref(img: torch.Tensor, centers: torch.Tensor, window: int):
+    """Plain version of K3: (t, gx, gy), each (K, window*window) float32."""
+    k = centers.shape[0]
+    pad = (window - 1) // 2 + 2
+    imgp = _pad(img, pad)
+    t, gx, gy = _template(imgp, centers[:, 0].to(F32), centers[:, 1].to(F32),
+                          window, pad)
+    n = window * window
+    return t.reshape(k, n), gx.reshape(k, n), gy.reshape(k, n)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels: build at first use, bind through ctypes
+# ---------------------------------------------------------------------------
+
+_PKG = Path(__file__).resolve().parent.parent
+_SRC = _PKG / "csrc" / "lk_kernels.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+MAX_WINDOW = 31          # LK_MAX_WIN in the CUDA source
+MAX_LEVELS = 8           # LK_MAX_LEVELS
+
+
+def _find_nvcc() -> str:
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(env)
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+@functools.cache
+def build_kernels() -> ctypes.CDLL:
+    """Compile csrc/lk_kernels.cu for sm_90a into BUILD_DIR (keyed by a hash
+    of the source and flags) and load it. Raises with nvcc's output if the
+    build fails, and when no CUDA device is present."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the LK CUDA kernels need a CUDA device; "
+                           "torch.cuda.is_available() is False")
+    src = _SRC.read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out_dir = BUILD_DIR / key
+    so = out_dir / "liblk_kernels.so"
+    if not so.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f"liblk_kernels.{os.getpid()}.tmp.so"
+        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.lk_track_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp, vp, ci,
+                                    ci, ci, cf, cf, vp, vp, vp]
+    lib.lk_refine_launch.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, vp, ci,
+                                     ci, ci, cf, cf, vp, vp, vp, vp]
+    lib.lk_extract_launch.argtypes = [vp, ci, ci, ci, vp, ci, ci, vp, vp, vp,
+                                      vp]
+    for fn in (lib.lk_track_launch, lib.lk_refine_launch, lib.lk_extract_launch):
+        fn.restype = ci
+    return lib
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {rc}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_window(window: int) -> None:
+    if not 3 <= window <= MAX_WINDOW:
+        raise ValueError(f"LK window {window} outside [3, {MAX_WINDOW}]")
+
+
+def _check_points(pts: torch.Tensor, active: torch.Tensor | None = None) -> int:
+    k = pts.shape[0]
+    if pts.shape != (k, 2) or k < 1:
+        raise ValueError(f"points must be (K, 2) with K >= 1, got {tuple(pts.shape)}")
+    if active is not None and active.shape != (k,):
+        raise ValueError(f"active must be ({k},), got {tuple(active.shape)}")
+    return k
+
+
+def _track_pyramidal_cuda(prev_pyr, next_pyr, pts, active, params: LKParams):
+    lib = build_kernels()
+    _check_window(params.window)
+    n_lvl = len(prev_pyr)
+    if not 1 <= n_lvl <= MAX_LEVELS or len(next_pyr) != n_lvl:
+        raise ValueError(f"bad pyramid depth {n_lvl}/{len(next_pyr)}")
+    dev = pts.device
+    for im in (*prev_pyr, *next_pyr):
+        if im.device != dev or im.dim() != 2:
+            raise ValueError("pyramid levels must be 2-D tensors on the "
+                             "device of the points")
+    k = _check_points(pts, active)
+    pad = (params.window - 1) // 2 + 2
+    prev_p = [_pad(p, pad).reshape(-1) for p in prev_pyr]
+    next_p = [_pad(p, pad).reshape(-1) for p in next_pyr]
+    offs, o = [], 0
+    for p in prev_p:
+        offs.append(o)
+        o += p.numel()
+    prev_flat = torch.cat(prev_p)
+    next_flat = torch.cat(next_p)
+    pts_c = pts.to(F32).contiguous()
+    act = active.to(torch.int32).contiguous()
+    out_pos = torch.empty((k, 2), dtype=F32, device=dev)
+    out_ok = torch.empty((k,), dtype=torch.int32, device=dev)
+    off_a = (ctypes.c_longlong * n_lvl)(*offs)
+    h_a = (ctypes.c_int * n_lvl)(*[int(p.shape[0]) for p in prev_pyr])
+    w_a = (ctypes.c_int * n_lvl)(*[int(p.shape[1]) for p in prev_pyr])
+    with torch.cuda.device(dev):
+        rc = lib.lk_track_launch(
+            prev_flat.data_ptr(), next_flat.data_ptr(),
+            ctypes.cast(off_a, ctypes.c_void_p), ctypes.cast(h_a, ctypes.c_void_p),
+            ctypes.cast(w_a, ctypes.c_void_p), n_lvl, pad, pts_c.data_ptr(),
+            act.data_ptr(), k, params.window, params.iters, float(params.eps),
+            float(params.min_eig_threshold), out_pos.data_ptr(),
+            out_ok.data_ptr(), _stream(pts_c))
+    _check(rc, "lk_track_launch")
+    launch_counts["track_pyramidal"] += 1
+    return out_pos, out_ok != 0
+
+
+def _refine_template_cuda(img, t_patch, gx, gy, pos0, active, window, iters,
+                          eps, max_shift):
+    lib = build_kernels()
+    _check_window(window)
+    dev = pos0.device
+    k = _check_points(pos0, active)
+    nw = window * window
+    for t in (img, t_patch, gx, gy, active):
+        if t.device != dev:
+            raise ValueError("refine_template inputs must share one device")
+    if t_patch.shape != (k, nw) or gx.shape != (k, nw) or gy.shape != (k, nw):
+        raise ValueError("templates must be (K, window*window)")
+    pad = (window - 1) // 2 + 2
+    h, w = img.shape
+    imgp = _pad(img, pad).contiguous()
+    tp = t_patch.to(F32).contiguous()
+    gxc = gx.to(F32).contiguous()
+    gyc = gy.to(F32).contiguous()
+    p0 = pos0.to(F32).contiguous()
+    act = active.to(torch.int32).contiguous()
+    out_pos = torch.empty((k, 2), dtype=F32, device=dev)
+    out_ok = torch.empty((k,), dtype=torch.int32, device=dev)
+    out_res = torch.empty((k,), dtype=F32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.lk_refine_launch(
+            imgp.data_ptr(), h, w, pad, tp.data_ptr(), gxc.data_ptr(),
+            gyc.data_ptr(), p0.data_ptr(), act.data_ptr(), k, window, iters,
+            float(eps), float(max_shift), out_pos.data_ptr(), out_ok.data_ptr(),
+            out_res.data_ptr(), _stream(p0))
+    _check(rc, "lk_refine_launch")
+    launch_counts["refine_template"] += 1
+    return out_pos, out_ok != 0, out_res
+
+
+def _extract_patches_cuda(img, centers, window):
+    lib = build_kernels()
+    _check_window(window)
+    dev = centers.device
+    if img.device != dev or img.dim() != 2:
+        raise ValueError("extract_patches needs a 2-D image on the device of the centers")
+    k = _check_points(centers)
+    nw = window * window
+    pad = (window - 1) // 2 + 2
+    h, w = img.shape
+    imgp = _pad(img, pad).contiguous()
+    c = centers.to(F32).contiguous()
+    outs = [torch.empty((k, nw), dtype=F32, device=dev) for _ in range(3)]
+    with torch.cuda.device(dev):
+        rc = lib.lk_extract_launch(
+            imgp.data_ptr(), h, w, pad, c.data_ptr(), k, window,
+            outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
+            _stream(c))
+    _check(rc, "lk_extract_launch")
+    launch_counts["extract_patches"] += 1
+    return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# Public dispatch
+# ---------------------------------------------------------------------------
+
+def _route(t: torch.Tensor) -> str:
+    if t.is_cuda:
+        return "cuda"
+    if t.device.type == "cpu":
+        return "cpu"
+    raise ValueError(f"LK ops run on CPU or CUDA tensors, not {t.device}")
+
+
+def track_pyramidal(prev_pyr, next_pyr, pts, active, params: LKParams):
+    """Coarse-to-fine KLT. prev_pyr/next_pyr: sequences of (H/2^l, W/2^l)
+    images; pts (K, 2); active (K,). Returns (pos (K, 2) float32, ok (K,))."""
+    if _route(pts) == "cuda":
+        return _track_pyramidal_cuda(prev_pyr, next_pyr, pts, active, params)
+    return track_pyramidal_ref(prev_pyr, next_pyr, pts, active, params)
+
+
+def refine_template(img, t_patch, gx, gy, pos0, active, window, iters, eps,
+                    max_shift):
+    """Zero-mean KLT of (K, window*window) templates against ``img`` from
+    ``pos0``, total excursion clamped to ``max_shift``. Returns (pos, ok,
+    resid)."""
+    if _route(pos0) == "cuda":
+        return _refine_template_cuda(img, t_patch, gx, gy, pos0, active,
+                                     window, iters, eps, max_shift)
+    return refine_template_ref(img, t_patch, gx, gy, pos0, active, window,
+                               iters, eps, max_shift)
+
+
+def extract_patches(img, centers, window):
+    """Template + Scharr gradient patches, each (K, window*window)."""
+    if _route(centers) == "cuda":
+        return _extract_patches_cuda(img, centers, window)
+    return extract_patches_ref(img, centers, window)

@@ -1,0 +1,165 @@
+"""Sliding-window Levenberg-Marquardt with landmark Schur complement (torch
+twin of mobile_slam_tpu.solver.lm, default path: the dual-candidate step —
+a near-Gauss-Newton and a conservative Marquardt candidate, both solved and
+scored each iteration — over a fixed iteration count).
+
+After the loop: NaN rollback, the 4-dof gauge fix of frame 0, depth
+write-back and reprojection-error outlier culling. The decoupled td update
+(``td_grad_hess``) is not ported; ``estimate_td`` is rejected upstream.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from mobile_slam_tpu.config import NUM_SLOTS
+from mobile_slam_tpu.solver import layout
+from mobile_slam_tpu_torch.factors.imu_factor import sqrt_info_from_cov
+from mobile_slam_tpu_torch.models.state import FeatureTable, WindowState, eligible_mask
+from mobile_slam_tpu_torch.solver import assembly
+from mobile_slam_tpu_torch.solver.assembly import Prior, SolverParams, XState
+from mobile_slam_tpu_torch.utils import rotations as rot
+from mobile_slam_tpu_torch.utils.linalg import cholesky_or_nan, median, tree_where
+
+W = NUM_SLOTS
+S = layout.S
+NSOLVE = layout.EX_COL
+OUTLIER_REPROJ_WHITENED = 2.0
+
+
+class SolveResult(NamedTuple):
+    x: XState
+    cost0: torch.Tensor
+    cost: torch.Tensor
+    accepted: torch.Tensor
+
+
+def _retract(x: XState, dx, dlam, lam_mask) -> XState:
+    dpose = dx[0:layout.POSE_COLS].reshape(W, 6)
+    dsb = dx[layout.POSE_COLS:layout.TD_COL].reshape(W, 9)
+    return XState(p=x.p + dpose[:, 0:3], q=rot.quat_boxplus(x.q, dpose[:, 3:6]),
+                  v=x.v + dsb[:, 0:3], ba=x.ba + dsb[:, 3:6], bg=x.bg + dsb[:, 6:9],
+                  lam=x.lam + torch.where(lam_mask, dlam, torch.zeros_like(dlam)),
+                  td=x.td + dx[layout.TD_COL])
+
+
+def _solve_damped(eqs: assembly.NormalEqs, mu, lam_mask):
+    """One damped Schur-complement solve: (dx (166,), dlam (F,))."""
+    H = eqs.H_ss[:NSOLVE, :NSOLVE]
+    g = eqs.g_s[:NSOLVE]
+    H_sl = eqs.H_sl[:NSOLVE]
+    diag = torch.diagonal(H)
+    floor = 1e-7 * median(diag) + 1e-10
+    H_d = H + torch.diag(mu * diag + floor)
+    hll = eqs.H_ll * (1.0 + mu) + 1e-6 * median(eqs.H_ll) + 1e-12
+    hll = torch.where(lam_mask, hll, torch.ones_like(hll))
+    inv_hll = 1.0 / hll
+    lm = lam_mask.to(H.dtype)
+    H_red = H_d - (H_sl * (inv_hll * lm)[None, :]) @ H_sl.T
+    g_red = g - H_sl @ (inv_hll * eqs.g_l * lm)
+    d = torch.sqrt(torch.clamp(torch.diagonal(H_red), min=1e-12))
+    Hn = H_red / (d[:, None] * d[None, :])
+    L = cholesky_or_nan(Hn)
+    dx = -torch.cholesky_solve((g_red / d)[:, None], L)[:, 0] / d
+    dlam = -(eqs.g_l + H_sl.T @ dx) * inv_hll
+    return dx, dlam
+
+
+def solve(x0: XState, table: FeatureTable, window: WindowState, prior: Prior,
+          ex_t, ex_q, params: SolverParams, num_iterations: int,
+          mu_init: float = 1e-8) -> SolveResult:
+    dtype = x0.p.dtype
+    imu_sqrt_info = sqrt_info_from_cov(window.pre.cov[1:])
+    imu_valid = (window.pre.sum_dt[1:] < 10.0) & (window.imu_cnt[1:] > 0)
+    proj_valid = assembly.proj_valid_mask(table)
+    lam_mask = eligible_mask(table)
+    prior_H0 = prior.J0.T @ prior.J0
+
+    def cost_fn(x):
+        return assembly.total_cost(x, table, window.pre, imu_sqrt_info,
+                                   imu_valid, prior, ex_t, ex_q, params, proj_valid)
+
+    cost0 = cost_fn(x0)
+    x, cost = x0, cost0
+    mu = torch.as_tensor(mu_init, dtype=dtype, device=x0.p.device)
+    n_acc = torch.zeros((), dtype=torch.int32, device=x0.p.device)
+    mu_b = torch.as_tensor(1e-4, dtype=dtype, device=x0.p.device)
+    inf = torch.full_like(cost, float("inf"))
+    for _ in range(num_iterations):
+        eqs = assembly.build_normal_eqs(x, table, window.pre, imu_sqrt_info,
+                                        imu_valid, prior, prior_H0, ex_t, ex_q,
+                                        params, proj_valid)
+        dx_a, dlam_a = _solve_damped(eqs, mu, lam_mask)
+        x_a = _retract(x, dx_a, dlam_a, lam_mask)
+        cost_a = cost_fn(x_a)
+        dx_b, dlam_b = _solve_damped(eqs, mu_b, lam_mask)
+        x_b = _retract(x, dx_b, dlam_b, lam_mask)
+        cost_b = cost_fn(x_b)
+        use_a = torch.isfinite(cost_a) & (
+            cost_a <= torch.where(torch.isfinite(cost_b), cost_b, inf))
+        x_new = tree_where(use_a, x_a, x_b)
+        cost_new = torch.where(use_a, cost_a, cost_b)
+        ok = torch.isfinite(cost_new) & (cost_new < cost)
+        x = tree_where(ok, x_new, x)
+        cost = torch.where(ok, cost_new, cost)
+        mu = torch.where(ok & use_a, torch.clamp(mu * 0.25, min=1e-12),
+                         torch.where(ok, mu, torch.clamp(mu * 10.0, max=1e4)))
+        n_acc = n_acc + ok.to(torch.int32)
+    return SolveResult(x=x, cost0=cost0, cost=cost, accepted=n_acc)
+
+
+def apply_gauge_fix(x: XState, p0_old, q0_old) -> XState:
+    """Rotate the solution so frame-0 yaw and position keep their pre-solve
+    values (applyOptimizationResults, with the euler-singularity case)."""
+    r0_old = rot.quat_to_rot(q0_old)
+    r0_new = rot.quat_to_rot(x.q[0])
+    ypr_old = rot.r2ypr(r0_old)
+    ypr_new = rot.r2ypr(r0_new)
+    y_diff = ypr_old[0] - ypr_new[0]
+    zero = torch.zeros_like(y_diff)
+    rot_diff = rot.ypr2r(torch.stack([y_diff, zero, zero]))
+    singular = ((torch.abs(torch.abs(ypr_old[1]) - 90.0) < 1.0)
+                | (torch.abs(torch.abs(ypr_new[1]) - 90.0) < 1.0))
+    rot_diff = torch.where(singular, r0_old @ r0_new.T, rot_diff)
+    q_diff = rot.rot_to_quat(rot_diff)
+    return XState(p=(x.p - x.p[0:1]) @ rot_diff.T + p0_old,
+                  q=rot.quat_normalize(rot.quat_mul(q_diff[None, :], x.q)),
+                  v=x.v @ rot_diff.T, ba=x.ba, bg=x.bg, lam=x.lam, td=x.td)
+
+
+def optimize(window: WindowState, table: FeatureTable, prior: Prior, ex_t,
+             ex_q, params: SolverParams, num_iterations: int, td0=0.0):
+    """Solve, NaN rollback, gauge fix, depth write-back and outlier culling.
+    Returns (window, table, SolveResult, culled_ids (F,))."""
+    dtype, dev = window.p.dtype, window.p.device
+    elig = eligible_mask(table)
+    safe_depth = torch.where(table.depth > 0, table.depth, params.init_depth)
+    lam0 = torch.where(elig, 1.0 / safe_depth, torch.ones_like(safe_depth))
+    x0 = XState(p=window.p, q=window.q, v=window.v, ba=window.ba, bg=window.bg,
+                lam=lam0, td=torch.as_tensor(td0, dtype=dtype, device=dev))
+    res = solve(x0, table, window, prior, ex_t, ex_q, params, num_iterations)
+
+    finite = torch.stack([torch.all(torch.isfinite(t)) for t in res.x]).all()
+    x = tree_where(finite, res.x, x0)
+    td = torch.where(params.td_enable > 0,
+                     torch.clamp(x.td, -params.td_max, params.td_max), x0.td)
+    x = apply_gauge_fix(x._replace(td=td), window.p[0], window.q[0])
+    window = window._replace(p=x.p, q=x.q, v=x.v, ba=x.ba, bg=x.bg)
+
+    new_depth = 1.0 / x.lam
+    neg = new_depth < 0
+    depth = torch.where(elig & ~neg, new_depth, table.depth)
+
+    proj_valid = assembly.proj_valid_mask(table)
+    r_p = assembly._all_residuals(x, table, ex_t, ex_q, params)
+    err = torch.linalg.vector_norm(r_p, dim=-1) * proj_valid
+    n_obs = torch.clamp(torch.sum(proj_valid, dim=1), min=1)
+    mean_err = torch.sum(err, dim=1) / n_obs
+    outlier = elig & (mean_err > OUTLIER_REPROJ_WHITENED)
+    solve_flag = torch.where(
+        elig, torch.where(neg | outlier, 2, 1).to(torch.int32), table.solve_flag)
+    culled_ids = torch.where(elig & outlier, table.fid, torch.full_like(table.fid, -1))
+    table = table._replace(depth=depth, solve_flag=solve_flag)
+    return window, table, res._replace(x=x), culled_ids

@@ -1,0 +1,48 @@
+"""Shared helpers for the tests that hold the PyTorch port against the JAX
+package: seeded inputs, numpy conversion and a single torch thread per
+worker (the suite runs several pytest-xdist workers side by side)."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+import jax
+import jax.numpy as jnp
+
+torch.set_num_threads(1)
+
+F64 = torch.float64
+
+
+def tonp(tree):
+    """JAX pytree -> the same structure with numpy leaves."""
+    return jax.tree.map(np.asarray, tree)
+
+
+def t64(a) -> torch.Tensor:
+    """numpy/JAX array -> float64 CPU tensor."""
+    return torch.as_tensor(np.array(a, dtype=np.float64))
+
+
+def texture(rs: np.random.RandomState, h: int, w: int) -> np.ndarray:
+    """Band-limited random texture on a 0..255 scale (the world of
+    tests/test_lk_pallas.py)."""
+    base = rs.rand(h // 4 + 2, w // 4 + 2).astype(np.float32) * 255.0
+    return np.asarray(jax.image.resize(jnp.asarray(base), (h, w), "cubic"))
+
+
+def shifted(img: np.ndarray, dx: float, dy: float) -> np.ndarray:
+    """img resampled at (x + dx, y + dy) with the reference's bilinear."""
+    from mobile_slam_tpu.ops import image as im
+
+    h, w = img.shape
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    coords = jnp.asarray(np.stack([xx + dx, yy + dy], -1))
+    return np.asarray(im.bilinear_sample(jnp.asarray(img, jnp.float64), coords))
+
+
+def ransac_draws(key, num_hypotheses: int) -> np.ndarray:
+    """The raw RANSAC draws the reference makes from ``key``
+    (mobile_slam_tpu/ops/ransac.py:170)."""
+    return np.array(jax.random.randint(key, (num_hypotheses, 8), 0, 1 << 30))
