@@ -7,17 +7,36 @@ Phases, each printed as it runs:
 
 0. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; exits with code 42 when no CUDA device is present.
-1. build: compiles the LK kernels (mobile_slam_tpu_torch/csrc) with nvcc.
-2. kernels: each LK kernel against its plain PyTorch version on the card,
-   at the shapes of the main path (two consecutive 512x512 bench frames,
-   their 4-level pyramids, 160 slots from the corner detector, a few
-   inactive), held to the parity bars of the CPU tests; both timed with
-   CUDA events (median of 30 runs after warm-up).
-3. main path: the port's VIOEngine on the bench configuration (KB fisheye
-   512x512, 160 slots, 384 landmarks, 2 LM iterations) over the bench's
-   synthetic sequence until TRACKING plus 45 frames; checks the status,
-   the poses (finite, ATE Sim3 < 0.05 m against ground truth) and that
-   every tracker frame launched K1 once, K2 twice and K3 twice.
+1. build: compiles every CUDA source of the port (mobile_slam_tpu_torch/
+   csrc: the LK kernels and the probe kernels), one nvcc each, in parallel.
+2. kernels: each LK kernel (K1-K3) against its plain PyTorch version on the
+   card, at the shapes of the main path (two consecutive 512x512 bench
+   frames, their 4-level pyramids, 160 slots from the corner detector, a few
+   inactive), held to the parity bars of the CPU tests; the wrapper (padding
+   glue + launch) and the plain version timed with CUDA events around each
+   call, the launch alone on prepared inputs from a CUDA graph replay
+   (device time only); the least time the card could take (bound) from
+   this run's inputs and iteration counts.
+3. streaming path: the port's VIOEngine on the bench configuration (KB
+   fisheye 512x512, 160 slots, 384 landmarks, 2 LM iterations) over the
+   bench's synthetic sequence until TRACKING plus EXTRA_FRAMES frames;
+   checks the status, the poses (finite, ATE Sim3 < 0.05 m) and that every
+   tracker frame launched K1 once, K2 twice and K3 twice; counts the host
+   syncs of a few tracking frames.
+4. serving path: ChunkedImageServer over the bench's 300-frame image-path
+   stretch (stream until TRACKING + 3 frames, then chunks of 50, the last
+   one padded by flush); checks that it enters chunked mode, >= 200 finite
+   poses, ATE Sim3 < 0.05 m, and K1/K2/K3 at exactly 1/2/2 launches per
+   frame of the chunk loop and per streamed frame; counts the host syncs
+   of one chunk.
+5. probes: P1 (call overhead) and P2 (LK cost attribution) against their
+   plain versions (P1 exact on inputs where its block sum shows; P2 on the
+   reference's noise pair and on the bench frame pair of phase 2: full
+   within 0.02 px, the other modes' displacement within 1e-6 px, every
+   mode's witness within 1e-4 relative), then
+   their drivers: ms/step against launches per step eagerly and under a
+   CUDA graph, and ms per call of each P2 mode with the attribution, on
+   both pairs.
 
 Prints a JSON line of per-kernel results, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Any failed check raises.
@@ -35,21 +54,38 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-SOURCE = "mobile_slam_tpu_torch/csrc/lk_kernels.cu"
-REPLACES = {
-    "track_pyramidal": "mobile_slam_tpu/ops/lk_pallas.py:490",
-    "refine_template": "mobile_slam_tpu/ops/lk_pallas.py:763",
-    "extract_patches": "mobile_slam_tpu/ops/lk_pallas.py:884",
+LK_SOURCE = "mobile_slam_tpu_torch/csrc/lk_kernels.cu"
+PROBE_SOURCE = "mobile_slam_tpu_torch/csrc/probe_kernels.cu"
+KERNELS = {     # name -> (source, TPU kernel it replaces)
+    "track_pyramidal": (LK_SOURCE, "mobile_slam_tpu/ops/lk_pallas.py:490"),
+    "refine_template": (LK_SOURCE, "mobile_slam_tpu/ops/lk_pallas.py:763"),
+    "extract_patches": (LK_SOURCE, "mobile_slam_tpu/ops/lk_pallas.py:884"),
+    "call_overhead": (PROBE_SOURCE, "scripts/dev_call_overhead.py:45"),
+    "lk_pack_probe": (PROBE_SOURCE, "scripts/dev_lk_pack_probe.py:124"),
 }
-POS_TOL = 0.02      # px, K1/K2 position bar
+LK_PER_FRAME = {"track_pyramidal": 1, "refine_template": 2, "extract_patches": 2}
+POS_TOL = 0.02      # px, K1/K2/P2-full position bar
+P2_DISP_TOL = 1e-6  # px, P2's other modes: constant or zero steps
+P2_WIT_RTOL = 1e-4  # P2 witness: float32 sums of 441 terms, full's windows
+                    # up to POS_TOL apart
 RESID_TOL = 0.05    # K2 residual bar (0..255 scale)
 PATCH_TOL = 1e-3    # K3 patch bar
 ATE_TOL = 0.05      # m, Sim3-aligned
-EXTRA_FRAMES = 45   # tracking frames after initialization
+EXTRA_FRAMES = 45   # streaming tracking frames after initialization
+SYNC_FRAMES = 5     # streaming tracking frames whose host syncs are counted
+SERVE_SECONDS = 15.0  # the bench's image-path stretch: 300 frames at 20 fps
+CHUNK = 50          # bench.py CHUNK
+MIN_SERVE_POSES = 200
+JAX_BAND = "0.010-0.014 m over 253 poses (BENCH_r05.json, TPU v5e)"
 NO_DEVICE = 42      # exit code without a CUDA device (tests/test_torch_cuda.py skips)
+# Published H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM3 bytes/s
+# and float32 outside the tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOP_S = 67e12
 
 
 def _time_ms(fn, reps=30, warmup=3) -> float:
+    """Median of ``reps`` single calls, CUDA events around each."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -65,9 +101,76 @@ def _time_ms(fn, reps=30, warmup=3) -> float:
     return float(np.median(times))
 
 
+def _time_graph_ms(fn, n=20, reps=10) -> float:
+    """Device time of one launch: n calls captured in one CUDA graph, the
+    replay timed with CUDA events; median over ``reps`` replays, / n. No
+    host enqueue time is inside the measurement."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return float(np.median(times))
+
+
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def _bound(nbytes: float, flops: float) -> dict:
+    """The least time on the card: the larger of bytes over the memory rate
+    and float32 operations over the float32 peak."""
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_S
+    t_ops = 1e3 * flops / PEAK_F32_FLOP_S
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=float(nbytes), bound_flops=float(flops))
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+# Floating-point operations of the LK building blocks, counted from the
+# kernels' source for a window of n = win * win pixels.
+def _template_flops(win):     # block Scharr + 3 bilinear patches
+    return 24 * (win + 1) ** 2 + 21 * win * win
+
+
+def _sums_flops(win):         # the three structure-tensor sums
+    return 6 * win * win
+
+
+def _track_iter_flops(win):   # K1: bilinear window + diff + two dot sums
+    return 12 * win * win + 10
+
+
+def _refine_iter_flops(win):  # K2: bilinear window + mean + zero-mean diff + sums
+    return 14 * win * win + 20
+
+
+def _refine_fixed_flops(win):  # K2 per point: template sums, zero-mean, end residual
+    return 20 * win * win
+
+
+def _feed_imu(sink, data, imu_i, ts):
+    while imu_i < len(data.imu_ts) and data.imu_ts[imu_i] <= ts + 1e-9:
+        sink.push_imu(data.imu_ts[imu_i], data.imu_acc[imu_i], data.imu_gyr[imu_i])
+        imu_i += 1
+    return imu_i
 
 
 def phase_device() -> str:
@@ -85,21 +188,29 @@ def phase_device() -> str:
     return smi[0]
 
 
-def phase_kernels(lk, data, cam, cfg, sim, example):
-    """Kernel vs plain version at main-path shapes."""
+def bench_pair(data, cam, cfg, sim, example):
+    """Two consecutive bench frames on the card, as the tracker sees them:
+    (img0, pyr0, img1, pyr1, pts, valid), the 160 slots from the corner
+    detector on the first."""
     from mobile_slam_tpu_torch.frontend import tracker as trk
     from mobile_slam_tpu_torch.ops import corners
 
-    dev = "cuda"
     tcfg = cfg.tracker
-    win = tcfg.lk_window_size
     frames = [torch.as_tensor(sim.render_frame(data, fi, cam, example.R_IC,
                                                cfg.camera.t_ic_vec),
-                              dtype=torch.float32, device=dev) for fi in (20, 21)]
+                              dtype=torch.float32, device="cuda") for fi in (20, 21)]
     img0, pyr0, resp0 = trk.preprocess_frame(frames[0], tcfg)
     img1, pyr1, _ = trk.preprocess_frame(frames[1], tcfg)
     pts, valid = corners.detect_grid(resp0, tcfg.min_dist, tcfg.max_points,
                                      quality_level=tcfg.quality_level)
+    return img0, pyr0, img1, pyr1, pts, valid
+
+
+def phase_kernels(lk, pair, cfg):
+    """K1-K3 against their plain versions at main-path shapes."""
+    tcfg = cfg.tracker
+    win = tcfg.lk_window_size
+    img0, pyr0, img1, pyr1, pts, valid = pair
     active = valid.clone()
     active[::16] = False
     n_live = int(active.sum())
@@ -111,28 +222,39 @@ def phase_kernels(lk, data, cam, cfg, sim, example):
 
     # K1
     pos_k, ok_k = lk._track_pyramidal_cuda(pyr0, pyr1, pts, active, params)
-    pos_p, ok_p = lk.track_pyramidal_ref(pyr0, pyr1, pts, active, params)
+    its = []    # point-iterations per level, coarse first, for the bound
+    pos_p, ok_p = lk.track_pyramidal_ref(pyr0, pyr1, pts, active, params, iterations=its)
     torch.cuda.synchronize()
     both = ok_k & ok_p
     _check(bool((ok_k == ok_p).all()), "K1 ok masks differ")
     _check(int(both.sum()) >= n_live // 2, f"K1 tracked only {int(both.sum())}")
     err1 = float((pos_k - pos_p)[both].norm(dim=-1).max())
     _check(err1 < POS_TOL, f"K1 position difference {err1} px")
+    k1_args = lk._track_prep(pyr0, pyr1, pts, active, params)
+    flops = (n_live * len(pyr0) * (_template_flops(win) + _sums_flops(win))
+             + sum(its) * _track_iter_flops(win))
     results["track_pyramidal"] = dict(
         max_abs_err=err1,
         ms=_time_ms(lambda: lk._track_pyramidal_cuda(pyr0, pyr1, pts, active, params)),
-        plain_ms=_time_ms(lambda: lk.track_pyramidal_ref(pyr0, pyr1, pts, active, params)))
+        launch_ms=_time_graph_ms(lambda: lk._track_launch(*k1_args)),
+        plain_ms=_time_ms(lambda: lk.track_pyramidal_ref(pyr0, pyr1, pts, active, params)),
+        library_ms=None, iterations_per_level=its,
+        **_bound(_nbytes(*pyr0, *pyr1, pts, active, pos_k, ok_k), flops))
 
-    # K3 at the tracked points of the new frame (the FB template, tracker.py:205)
+    # K3 at the tracked points of the new frame (the FB template)
     new_pts = pos_k
     t_k = lk._extract_patches_cuda(img1, new_pts, win)
     t_p = lk.extract_patches_ref(img1, new_pts, win)
     err3 = max(float((a - b).abs().max()) for a, b in zip(t_k, t_p))
     _check(err3 < PATCH_TOL, f"K3 patch difference {err3}")
+    k3_args = lk._extract_prep(img1, new_pts, win)
     results["extract_patches"] = dict(
         max_abs_err=err3,
         ms=_time_ms(lambda: lk._extract_patches_cuda(img1, new_pts, win)),
-        plain_ms=_time_ms(lambda: lk.extract_patches_ref(img1, new_pts, win)))
+        launch_ms=_time_graph_ms(lambda: lk._extract_launch(*k3_args)),
+        plain_ms=_time_ms(lambda: lk.extract_patches_ref(img1, new_pts, win)),
+        library_ms=None,
+        **_bound(_nbytes(img1, new_pts, *t_k), new_pts.shape[0] * _template_flops(win)))
 
     # K2 at both tracker settings: FB backward pass and anchor refinement.
     anchor = lk.extract_patches_ref(img0, pts, win)
@@ -144,7 +266,9 @@ def phase_kernels(lk, data, cam, cfg, sim, example):
     for name, (img, tmpl, start, iters, max_shift) in settings.items():
         args = (img, *tmpl, start, ok_k, win, iters, tcfg.lk_eps, max_shift)
         pk, okk, rk = lk._refine_template_cuda(*args)
-        pp, okp, rp = lk.refine_template_ref(*args)
+        n_its = []
+        pp, okp, rp = lk.refine_template_ref(*args, iterations=n_its)
+        n_it = n_its[0]
         torch.cuda.synchronize()
         _check(bool((okk == okp).all()), f"K2 ({name}) ok masks differ")
         m = okk & okp
@@ -153,45 +277,63 @@ def phase_kernels(lk, data, cam, cfg, sim, example):
         _check(dpos < POS_TOL, f"K2 ({name}) position difference {dpos} px")
         _check(dres < RESID_TOL, f"K2 ({name}) residual difference {dres}")
         err2 = max(err2, dpos, dres)
-        times[name] = (_time_ms(lambda: lk._refine_template_cuda(*args)),
-                       _time_ms(lambda: lk.refine_template_ref(*args)))
+        prepped = lk._refine_prep(*args)
+        n_act = int(ok_k.sum())
+        flops = n_act * _refine_fixed_flops(win) + n_it * _refine_iter_flops(win)
+        times[name] = dict(
+            ms=_time_ms(lambda: lk._refine_template_cuda(*args)),
+            launch_ms=_time_graph_ms(lambda: lk._refine_launch(*prepped)),
+            plain_ms=_time_ms(lambda: lk.refine_template_ref(*args)),
+            iterations=n_it,
+            **_bound(_nbytes(img, *tmpl, start, ok_k, pk, okk, rk), flops))
         print(f"[phase 2] K2 {name}: iters {iters} max_shift {max_shift} "
               f"ok {int(m.sum())} pos diff {dpos:.3g} px resid diff {dres:.3g} "
-              f"kernel {times[name][0]:.4f} ms plain {times[name][1]:.4f} ms",
-              flush=True)
+              f"wrapper {times[name]['ms']:.4f} ms launch (graph) "
+              f"{times[name]['launch_ms']:.4f} ms plain {times[name]['plain_ms']:.4f} ms "
+              f"bound {times[name]['bound_ms']:.5f} ms ({times[name]['bound_by']}, "
+              f"{n_it} point-iterations)", flush=True)
     results["refine_template"] = dict(
-        max_abs_err=err2, ms=times["fb"][0], plain_ms=times["fb"][1],
-        ms_anchor=times["anchor"][0], plain_ms_anchor=times["anchor"][1])
+        max_abs_err=err2, library_ms=None, **times["fb"],
+        **{f"{k}_anchor": v for k, v in times["anchor"].items()})
     for name in ("track_pyramidal", "extract_patches"):
         r = results[name]
-        print(f"[phase 2] {name}: max err {r['max_abs_err']:.3g} kernel "
-              f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms", flush=True)
+        print(f"[phase 2] {name}: max err {r['max_abs_err']:.3g} wrapper "
+              f"{r['ms']:.4f} ms launch (graph) {r['launch_ms']:.4f} ms plain "
+              f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.5f} ms ({r['bound_by']})",
+              flush=True)
+    print(f"[phase 2] K1 point-iterations per level (coarse first): "
+          f"{results['track_pyramidal']['iterations_per_level']}", flush=True)
     return results
 
 
-def phase_main_path(lk, data, cam, cfg, sim, example):
+def phase_streaming(lk, data, cam, cfg, sim, example):
     from mobile_slam_tpu_torch.engine.vio_engine import Status, VIOEngine
     from mobile_slam_tpu_torch.eval.evaluator import compute_ate
+    from mobile_slam_tpu_torch.probes.sync_sites import SyncSites
 
-    engine = VIOEngine(cfg, device="cuda", dtype=torch.float32)
+    engine = VIOEngine(cfg)
+    _check(engine.device.type == "cuda", f"engine on {engine.device}")
     est_ts, est_p = [], []
     imu_i, init_frame, n_frames = 0, None, 0
-    frame_ms, at_init = [], None
+    frame_ms, at_init, syncs = [], None, []
     lk.reset_launch_counts()
     for fi in range(len(data.frames)):
         img = sim.render_frame(data, fi, cam, example.R_IC, cfg.camera.t_ic_vec)
         ts = data.cam_ts[fi]
-        while imu_i < len(data.imu_ts) and data.imu_ts[imu_i] <= ts + 1e-9:
-            engine.push_imu(data.imu_ts[imu_i], data.imu_acc[imu_i],
-                            data.imu_gyr[imu_i])
-            imu_i += 1
+        imu_i = _feed_imu(engine, data, imu_i, ts)
+        counted = init_frame is not None and fi > init_frame + EXTRA_FRAMES - SYNC_FRAMES
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = engine.process_frame(img, ts)
+        if counted:
+            with SyncSites() as sc:
+                res = engine.process_frame(img, ts)
+            syncs.append(sum(sc.sites.values()))
+        else:
+            res = engine.process_frame(img, ts)
         torch.cuda.synchronize()
         dt_ms = 1e3 * (time.perf_counter() - t0)
         n_frames += 1
-        if init_frame is not None:
+        if init_frame is not None and not counted:
             frame_ms.append(dt_ms)
         if res.ok:
             p, _, _ = engine.get_body_state()
@@ -209,21 +351,205 @@ def phase_main_path(lk, data, cam, cfg, sim, example):
     est_p = np.asarray(est_p)
     _check(len(est_p) >= 30, f"only {len(est_p)} ok poses")
     _check(bool(np.isfinite(est_p).all()), "non-finite poses")
-    per_frame = {"track_pyramidal": 1, "refine_template": 2, "extract_patches": 2}
     n_track = n_frames - 1 - init_frame
-    for k, n in per_frame.items():
+    for k, n in LK_PER_FRAME.items():
         _check(counts[k] == n * n_frames,
                f"{k}: {counts[k]} launches over {n_frames} frames")
         _check(counts[k] - at_init[k] == n * n_track,
                f"{k}: {counts[k] - at_init[k]} launches over {n_track} tracking frames")
     ate = compute_ate(np.asarray(est_ts), est_p, data.cam_ts, data.gt_p)
     _check(ate.rmse < ATE_TOL, f"ATE {ate.rmse} m")
+    out = dict(counts=counts, init_frame=init_frame, ate=float(ate.rmse),
+               ms_per_frame=float(np.median(frame_ms)),
+               syncs_per_frame=float(np.mean(syncs)))
     print(f"[phase 3] init frame {init_frame}, {n_frames} frames, {len(est_p)} "
           f"poses, ATE sim3 rmse {ate.rmse:.4f} m over {ate.num_pairs} pairs, "
-          f"median {np.median(frame_ms):.2f} ms per tracking frame "
-          f"(p90 {np.percentile(frame_ms, 90):.2f} ms), launches {counts}",
+          f"median {out['ms_per_frame']:.2f} ms per tracking frame "
+          f"(p90 {np.percentile(frame_ms, 90):.2f} ms), host syncs per tracking "
+          f"frame {syncs} (mean {out['syncs_per_frame']:.1f}), launches {counts}",
           flush=True)
-    return counts
+    return out
+
+
+def phase_serving(lk, cfg, sim, example, make_camera):
+    from mobile_slam_tpu_torch.engine.serving import ChunkedImageServer
+    from mobile_slam_tpu_torch.eval.evaluator import compute_ate
+    from mobile_slam_tpu_torch.probes.sync_sites import SyncSites
+
+    cam = make_camera(cfg.camera, dtype=torch.float64, device="cpu")
+    data = sim.simulate(example.bench_sim_config(SERVE_SECONDS), cam,
+                        cfg.camera.r_ic_mat, cfg.camera.t_ic_vec)
+    n_img = min(int(SERVE_SECONDS * 20.0), len(data.frames))
+    # The bench's protocol: stream until TRACKING + 3 frames (the init frame
+    # and 3 more tracked in a row), then chunks.
+    server = ChunkedImageServer(cfg, chunk_size=CHUNK, stable_frames=4)
+    _check(server.engine.device.type == "cuda", f"server on {server.engine.device}")
+    step = server._step
+    loop = {"frames": 0, **{k: 0 for k in LK_PER_FRAME}}
+
+    def counted_step(carry, inputs, ransac_draws=None):
+        before = dict(lk.launch_counts)
+        out = step(carry, inputs, ransac_draws)
+        loop["frames"] += inputs.img.shape[0]
+        for k in LK_PER_FRAME:
+            loop[k] += lk.launch_counts[k] - before[k]
+        return out
+
+    server._step = counted_step
+    results, imu_i, chunk_syncs = [], 0, None
+    lk.reset_launch_counts()
+    t_start = time.perf_counter()
+    sync_ctx = None
+    for fi in range(n_img):
+        img = sim.render_frame(data, fi, cam, example.R_IC, cfg.camera.t_ic_vec)
+        ts = data.cam_ts[fi]
+        imu_i = _feed_imu(server, data, imu_i, ts)
+        # Count the host syncs of the second chunk, from its first buffered
+        # frame to the call that runs it.
+        if (chunk_syncs is None and sync_ctx is None and server.n_chunks == 1
+                and server.mode == "chunked" and not server._buf):
+            sync_ctx = SyncSites().__enter__()
+            chunks_before = server.n_chunks
+        out = server.process_frame(img, ts)
+        if sync_ctx is not None and server.n_chunks > chunks_before:
+            sync_ctx.__exit__(None, None, None)
+            chunk_syncs, sync_ctx = sum(sync_ctx.sites.values()), None
+        results += out
+    results += server.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    counts = dict(lk.launch_counts)
+
+    _check(server.n_chunks >= 1, "the server never entered chunked mode")
+    _check(chunk_syncs is not None, "no chunk was counted for host syncs")
+    ok = [r for r in results if r.ok]
+    est_p = np.asarray([r.p for r in ok])
+    _check(len(ok) >= MIN_SERVE_POSES, f"only {len(ok)} ok poses")
+    _check(bool(np.isfinite(est_p).all()), "non-finite poses")
+    n_stream = server.frames_streamed
+    for k, n in LK_PER_FRAME.items():
+        _check(loop[k] == n * loop["frames"],
+               f"{k}: {loop[k]} launches over {loop['frames']} chunk-loop frames")
+        _check(counts[k] == n * (loop["frames"] + n_stream),
+               f"{k}: {counts[k]} launches over {loop['frames']} chunk-loop + "
+               f"{n_stream} streamed frames")
+    ate = compute_ate(np.asarray([r.ts for r in ok]), est_p, data.cam_ts, data.gt_p)
+    _check(ate.rmse < ATE_TOL, f"ATE {ate.rmse} m")
+    ms_chunked = 1e3 * server.chunk_wall_s / server.frames_chunked
+    out = dict(counts=counts, ate=float(ate.rmse), n_poses=len(ok),
+               ms_per_chunked_frame=ms_chunked, chunked_fps=server.chunked_fps(),
+               syncs_per_chunked_frame=chunk_syncs / CHUNK)
+    print(f"[phase 4] {n_img} frames: {n_stream} streamed, {server.n_chunks} chunks "
+          f"of {CHUNK} ({server.frames_chunked} real frames, {loop['frames']} through "
+          f"the loop), {server.n_recoveries} recoveries, {len(ok)} ok poses; "
+          f"ATE sim3 rmse {ate.rmse:.4f} m over {ate.num_pairs} pairs (JAX band "
+          f"{JAX_BAND}); {ms_chunked:.2f} ms per chunked frame, chunked_fps "
+          f"{server.chunked_fps():.3f}, whole run {wall:.1f} s; host syncs "
+          f"{chunk_syncs} over one chunk = {chunk_syncs / CHUNK:.1f} per chunked "
+          f"frame; launches {counts}, chunk loop {loop}", flush=True)
+    return out
+
+
+def phase_probes(lk, pair):
+    from mobile_slam_tpu_torch.probes import call_overhead as p1
+    from mobile_slam_tpu_torch.probes import lk_pack_probe as p2
+
+    results = {}
+    # P1 is held on inputs where its arithmetic shows (p1.check_inputs: an
+    # integer image, whose float32 block sum is exact in any order, and
+    # points near 0, so the sum moves every output by ~1e6 ulps): exact.
+    cpts, cimg = p1.check_inputs("cuda")
+    a = p1._touch_points_cuda(cpts, cimg)
+    b = p1.touch_points_ref(cpts, cimg)
+    torch.cuda.synchronize()
+    err = float((a - b).abs().max())
+    _check(err == 0.0, f"P1 differs from its plain version by {err}")
+    _check(bool((b != cpts).all()), "P1's check inputs do not show the block sum")
+    pts, imgs = p1.inputs("cuda")       # the reference's, for the timings
+    results["call_overhead"] = dict(
+        max_abs_err=err, library_ms=None,
+        ms=_time_ms(lambda: p1._touch_points_cuda(pts, imgs[0])),
+        launch_ms=_time_graph_ms(lambda: p1._touch_points_cuda(pts, imgs[0])),
+        plain_ms=_time_ms(lambda: p1.touch_points_ref(pts, imgs[0])),
+        **_bound(_nbytes(pts, imgs[0][:p1.BLOCK_ROWS, :p1.BLOCK_COLS], a),
+                 p1.BLOCK_ROWS * p1.BLOCK_COLS + pts.numel()))
+
+    # P2 on the reference's inputs (noise, a known (-3, +3) px shift) and on
+    # the main path's: the bench frame pair at level 0 and its live slots.
+    # full is held at the K1 bar. The other modes step by constants or by
+    # exactly 0, so their displacement is held at P2_DISP_TOL, and every
+    # mode's witness (the sum of its last compared window, which shows the
+    # loads and the resampling the positions cannot) at P2_WIT_RTOL.
+    _, pyr0, _, pyr1, pts_main, valid = pair
+    p2_inputs = {
+        "reference": p2.inputs("cuda"),
+        "bench": (pts_main[valid].float().contiguous(),
+                  lk._pad(pyr0[0], p2.PAD).contiguous(),
+                  lk._pad(pyr1[0], p2.PAD).contiguous()),
+    }
+    err2, wit2 = {}, {}
+    for src, (q, prev_p, next_p) in p2_inputs.items():
+        for mode in p2.MODES:
+            a, wa = p2._lk_probe_cuda(q, prev_p, next_p, p2.PAD, mode)
+            b, wb = p2.lk_probe_ref(q, prev_p, next_p, p2.PAD, mode)
+            torch.cuda.synchronize()
+            name = f"{src} {mode}"
+            err2[name] = e = float(((a - q) - (b - q)).abs().max())
+            wit2[name] = w = float(((wa - wb).abs() / wb.abs().clamp(min=1.0)).max())
+            tol = POS_TOL if mode == "full" else P2_DISP_TOL
+            _check(e <= tol, f"P2 {mode} on the {src} inputs: displacement differs "
+                             f"by {e} px (bar {tol})")
+            _check(w <= P2_WIT_RTOL, f"P2 {mode} on the {src} inputs: witness differs "
+                                     f"by {w} relative (bar {P2_WIT_RTOL})")
+    q, prev_p, next_p = p2_inputs["bench"]
+    win, k = p2.WIN, q.shape[0]
+    flops = k * (_template_flops(win) + _sums_flops(win)
+                 + p2.ITERS * _track_iter_flops(win))
+    results["lk_pack_probe"] = dict(
+        max_abs_err=max(err2.values()), max_abs_err_by_inputs_mode=err2,
+        witness_rel_err_by_inputs_mode=wit2, library_ms=None, points=k,
+        ms=_time_ms(lambda: p2._lk_probe_cuda(q, prev_p, next_p, p2.PAD, "full")),
+        launch_ms=_time_graph_ms(
+            lambda: p2._lk_probe_cuda(q, prev_p, next_p, p2.PAD, "full")),
+        plain_ms=_time_ms(lambda: p2.lk_probe_ref(q, prev_p, next_p, p2.PAD, "full")),
+        **_bound(_nbytes(q, prev_p, next_p, a, wa), flops))
+    print(f"[phase 5] P1 max err {err}, P2 displacement err by inputs and mode "
+          f"{err2}, witness relative err {wit2}", flush=True)
+
+    # The probes' own path: their drivers, launches counted from 0.
+    p1.reset_launch_counts()
+    p2.reset_launch_counts()
+    r1 = p1.run()
+    r2 = p2.run()
+    r2_bench = p2.run(data=p2_inputs["bench"])
+    results["call_overhead"].update(
+        launches=p1.launch_counts["touch_points"], eager_ms_per_step=r1["eager"],
+        graph_ms_per_step=r1["graph"], slope_eager_us=r1["slope_eager_us"],
+        slope_graph_us=r1["slope_graph_us"])
+    results["lk_pack_probe"].update(
+        launches=p2.launch_counts["lk_probe"], mode_ms=r2["ms"],
+        per_point_iter_us=r2["per_point_iter_us"],
+        median_displacement=r2["median_displacement"],
+        bench_mode_ms=r2_bench["ms"],
+        bench_per_point_iter_us=r2_bench["per_point_iter_us"])
+    for n in r1["eager"]:
+        print(f"[phase 5] P1 calls/step={n}: eager {r1['eager'][n]:.4f} ms/step, "
+              f"graph {r1['graph'][n]:.4f} ms/step", flush=True)
+    print(f"[phase 5] P1 per launch: eager {r1['slope_eager_us']:.3f} us, graph "
+          f"{r1['slope_graph_us']:.3f} us", flush=True)
+    print(f"[phase 5] P2 median displacement {r2['median_displacement']} (expect "
+          f"~[-3, 3]); ms/call {r2['ms']}; per point-iteration us "
+          f"{r2['per_point_iter_us']}", flush=True)
+    print(f"[phase 5] P2 on the bench frame pair ({k} points): ms/call "
+          f"{r2_bench['ms']}; per point-iteration us "
+          f"{r2_bench['per_point_iter_us']}", flush=True)
+    for name in ("call_overhead", "lk_pack_probe"):
+        r = results[name]
+        _check(r["launches"] > 0, f"{name}: no launch on its driver's path")
+        print(f"[phase 5] {name}: wrapper {r['ms']:.4f} ms, launch (graph) "
+              f"{r['launch_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.6f} ms ({r['bound_by']})", flush=True)
+    return results
 
 
 def main() -> int:
@@ -232,25 +558,42 @@ def main() -> int:
     from mobile_slam_tpu_torch.engine.vio_engine import set_full_precision
     from mobile_slam_tpu_torch.eval import simulation as sim
     from mobile_slam_tpu_torch.models.cameras.base import make_camera
-    from mobile_slam_tpu_torch.ops import lk
+    from mobile_slam_tpu_torch.ops import cuda_build, lk
+    from mobile_slam_tpu_torch.probes import call_overhead, lk_pack_probe
 
     set_full_precision()
     t0 = time.perf_counter()
+    cuda_build.build(*cuda_build.SOURCES)
     lk.build_kernels()
-    print(f"[phase 1] built {SOURCE} in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    call_overhead.build_kernels()
+    lk_pack_probe.build_kernels()
+    print(f"[phase 1] built {', '.join(cuda_build.SOURCES)} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     cfg = example.bench_config()
-    cam = make_camera(cfg.camera, dtype=torch.float64)
+    cam = make_camera(cfg.camera, dtype=torch.float64, device="cpu")
     data = sim.simulate(example.bench_sim_config(8.0), cam,
                         cfg.camera.r_ic_mat, cfg.camera.t_ic_vec)
-    kernels = phase_kernels(lk, data, cam, cfg, sim, example)
-    counts = phase_main_path(lk, data, cam, cfg, sim, example)
+    pair = bench_pair(data, cam, cfg, sim, example)
+    kernels = phase_kernels(lk, pair, cfg)
+    stream = phase_streaming(lk, data, cam, cfg, sim, example)
+    serve = phase_serving(lk, cfg, sim, example, make_camera)
+    kernels.update(phase_probes(lk, pair))
+    for k in LK_PER_FRAME:
+        kernels[k].update(launches=serve["counts"][k],
+                          launches_streaming=stream["counts"][k])
+    print(f"[summary] streaming {stream['ms_per_frame']:.2f} ms per tracking frame, "
+          f"{stream['syncs_per_frame']:.1f} host syncs per frame; chunked "
+          f"{serve['ms_per_chunked_frame']:.2f} ms per frame, "
+          f"{serve['syncs_per_chunked_frame']:.1f} host syncs per frame; serving "
+          f"ATE {serve['ate']:.4f} m over {serve['n_poses']} poses", flush=True)
     _check("jax" not in sys.modules, "jax was imported")
+    _check(not any(m == "mobile_slam_tpu" or m.startswith("mobile_slam_tpu.")
+                   for m in sys.modules), "the JAX package was imported")
 
     print(json.dumps({"kernels": [
-        dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
-             launches=counts[k], **kernels[k]) for k in REPLACES]}))
+        dict(name=k, route="cuda", source=src, replaces=rep, **kernels[k])
+        for k, (src, rep) in KERNELS.items()]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

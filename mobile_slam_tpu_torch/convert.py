@@ -35,7 +35,7 @@ def _leaf(x, device, dtype) -> torch.Tensor:
     return torch.as_tensor(a, device=device)
 
 
-def to_torch(obj, cls, *, device="cpu", dtype=torch.float32):
+def to_torch(obj, cls, *, device, dtype=torch.float32):
     """Convert a reference structure into the port's NamedTuple ``cls``."""
     out = {}
     for name in cls._fields:

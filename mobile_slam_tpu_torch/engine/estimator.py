@@ -16,8 +16,8 @@ from typing import NamedTuple
 
 import torch
 
-from mobile_slam_tpu.config import NUM_SLOTS, VIOConfig
-from mobile_slam_tpu.solver import layout
+from mobile_slam_tpu_torch.config import NUM_SLOTS, VIOConfig
+from mobile_slam_tpu_torch.solver import layout
 from mobile_slam_tpu_torch.factors import marginalization
 from mobile_slam_tpu_torch.factors.imu_factor import sqrt_info_from_cov
 from mobile_slam_tpu_torch.frontend import feature_table as ft
@@ -86,7 +86,7 @@ class StaticParams(NamedTuple):
     td_rw_info: torch.Tensor
 
 
-def make_params(cfg: VIOConfig, *, dtype=torch.float32, device="cpu") -> StaticParams:
+def make_params(cfg: VIOConfig, *, dtype=torch.float32, device) -> StaticParams:
     if cfg.estimator.estimate_td:
         raise NotImplementedError("estimate_td is not ported yet")
     cam, est = cfg.camera, cfg.estimator
@@ -130,17 +130,31 @@ def init_state(cfg: VIOConfig, params: StaticParams) -> EstimatorState:
     )
 
 
+def _at(a: torch.Tensor, i) -> torch.Tensor:
+    """a[i] for a python int or a 0-dim index tensor; a tensor index stays
+    on the device (indexing with a 0-dim tensor would read it on the host)."""
+    if isinstance(i, torch.Tensor):
+        return a.index_select(0, i.reshape(1))[0]
+    return a[i]
+
+
+def _put(a: torch.Tensor, i, val) -> torch.Tensor:
+    """A copy of ``a`` with row ``i`` (python int or 0-dim tensor) set to
+    ``val``, without a host read of ``i``."""
+    if isinstance(i, torch.Tensor):
+        val = torch.as_tensor(val, dtype=a.dtype, device=a.device)
+        return a.index_copy(0, i.reshape(1), val.expand(a.shape[1:])[None])
+    a = a.clone()
+    a[i] = val
+    return a
+
+
 def _row(pre_all: pre.Preintegration, i) -> pre.Preintegration:
-    return pre.Preintegration(*[leaf[i] for leaf in pre_all])
+    return pre.Preintegration(*[_at(leaf, i) for leaf in pre_all])
 
 
 def _set_row(pre_all: pre.Preintegration, i, one: pre.Preintegration):
-    out = []
-    for full, val in zip(pre_all, one):
-        full = full.clone()
-        full[i] = val
-        out.append(full)
-    return pre.Preintegration(*out)
+    return pre.Preintegration(*[_put(full, i, val) for full, val in zip(pre_all, one)])
 
 
 def ingest_imu(state: EstimatorState, inp: FrameInput, params: StaticParams) -> EstimatorState:
@@ -153,14 +167,16 @@ def ingest_imu(state: EstimatorState, inp: FrameInput, params: StaticParams) -> 
     prev_gyr = torch.where(state.first_imu_seen, state.prev_gyr, inp.imu_gyr[0])
 
     slot_pre = _row(w.pre, fc)
-    has_prev = w.imu_cnt[fc] > 0
-    fresh = pre.identity_preintegration(w.ba[fc], w.bg[fc])
+    cnt = _at(w.imu_cnt, fc)
+    ba, bg = _at(w.ba, fc), _at(w.bg, fc)
+    has_prev = cnt > 0
+    fresh = pre.identity_preintegration(ba, bg)
     carry_pre = tree_where(has_prev, slot_pre, fresh)
-    acc0 = torch.where(has_prev, w.imu_acc0[fc], prev_acc)
-    gyr0 = torch.where(has_prev, w.imu_gyr0[fc], prev_gyr)
-    last_idx = torch.clamp(w.imu_cnt[fc].long() - 1, 0, m - 1)
-    stream_acc = torch.where(has_prev, w.imu_acc[fc, last_idx], acc0)
-    stream_gyr = torch.where(has_prev, w.imu_gyr[fc, last_idx], gyr0)
+    acc0 = torch.where(has_prev, _at(w.imu_acc0, fc), prev_acc)
+    gyr0 = torch.where(has_prev, _at(w.imu_gyr0, fc), prev_gyr)
+    last_idx = torch.clamp(cnt.long() - 1, 0, m - 1)
+    stream_acc = torch.where(has_prev, _at(_at(w.imu_acc, fc), last_idx), acc0)
+    stream_gyr = torch.where(has_prev, _at(_at(w.imu_gyr, fc), last_idx), gyr0)
 
     new_pre = pre.continue_preintegration_parallel(
         carry_pre, stream_acc, stream_gyr, inp.imu_dt, inp.imu_acc,
@@ -169,42 +185,37 @@ def ingest_imu(state: EstimatorState, inp: FrameInput, params: StaticParams) -> 
     new_pre = tree_where(skip, slot_pre, new_pre)
 
     ar = torch.arange(m, device=fc.device)
-    idx = w.imu_cnt[fc].long() + ar
+    idx = cnt.long() + ar
     ok = (ar < inp.imu_cnt) & (idx < m) & ~skip
     widx = torch.where(ok, idx, m)
 
     def append(buf, vals):
-        row = torch.cat([buf[fc], torch.zeros_like(buf[fc][:1])], dim=0)
+        cur = _at(buf, fc)
+        row = torch.cat([cur, torch.zeros_like(cur[:1])], dim=0)
         row[widx] = vals
-        out = buf.clone()
-        out[fc] = row[:m]
-        return out
+        return _put(buf, fc, row[:m])
 
     imu_dt = append(w.imu_dt, inp.imu_dt)
     imu_acc = append(w.imu_acc, inp.imu_acc)
     imu_gyr = append(w.imu_gyr, inp.imu_gyr)
-    new_cnt = torch.where(skip, w.imu_cnt[fc],
-                          torch.clamp(w.imu_cnt[fc] + inp.imu_cnt, max=m))
-    imu_cnt = w.imu_cnt.clone()
-    imu_cnt[fc] = new_cnt.to(torch.int32)
-    imu_acc0 = w.imu_acc0.clone()
-    imu_acc0[fc] = acc0
-    imu_gyr0 = w.imu_gyr0.clone()
-    imu_gyr0[fc] = gyr0
+    new_cnt = torch.where(skip, cnt, torch.clamp(cnt + inp.imu_cnt, max=m))
+    imu_cnt = _put(w.imu_cnt, fc, new_cnt)
+    imu_acc0 = _put(w.imu_acc0, fc, acc0)
+    imu_gyr0 = _put(w.imu_gyr0, fc, gyr0)
 
+    p_fc, q_fc, v_fc = _at(w.p, fc), _at(w.q, fc), _at(w.v, fc)
     p_new, q_new, v_new, _, _ = pre.propagate_state_parallel(
-        w.p[fc], w.q[fc], w.v[fc], w.ba[fc], w.bg[fc], prev_acc, prev_gyr,
+        p_fc, q_fc, v_fc, ba, bg, prev_acc, prev_gyr,
         inp.imu_dt, inp.imu_acc, inp.imu_gyr, inp.imu_cnt, params.gravity)
     good = (torch.all(torch.isfinite(p_new)) & torch.all(torch.isfinite(q_new))
             & torch.all(torch.isfinite(v_new)) & ~skip)
-    p_w, q_w, v_w = w.p.clone(), w.q.clone(), w.v.clone()
-    p_w[fc] = torch.where(good, p_new, w.p[fc])
-    q_w[fc] = torch.where(good, q_new, w.q[fc])
-    v_w[fc] = torch.where(good, v_new, w.v[fc])
+    p_w = _put(w.p, fc, torch.where(good, p_new, p_fc))
+    q_w = _put(w.q, fc, torch.where(good, q_new, q_fc))
+    v_w = _put(w.v, fc, torch.where(good, v_new, v_fc))
 
     last_i = torch.clamp(inp.imu_cnt.long() - 1, 0, m - 1)
-    prev_acc = torch.where(has_any, inp.imu_acc[last_i], prev_acc)
-    prev_gyr = torch.where(has_any, inp.imu_gyr[last_i], prev_gyr)
+    prev_acc = torch.where(has_any, _at(inp.imu_acc, last_i), prev_acc)
+    prev_gyr = torch.where(has_any, _at(inp.imu_gyr, last_i), prev_gyr)
     window = w._replace(p=p_w, q=q_w, v=v_w, pre=_set_row(w.pre, fc, new_pre),
                         imu_dt=imu_dt, imu_acc=imu_acc, imu_gyr=imu_gyr,
                         imu_cnt=imu_cnt, imu_acc0=imu_acc0, imu_gyr0=imu_gyr0)
@@ -217,8 +228,7 @@ def bookkeeping_step(state: EstimatorState, inp: FrameInput,
     """IMU ingestion + feature add + keyframe decision -> (state, is_kf)."""
     state = ingest_imu(state, inp, params)
     fc = torch.clamp(state.frame_count, 0, W - 1).long()
-    ts = state.window.ts.clone()
-    ts[fc] = inp.ts
+    ts = _put(state.window.ts, fc, inp.ts)
     add = ft.add_and_check_parallax(state.table, inp.ids, inp.obs, inp.uv,
                                     inp.vel, inp.valid, fc,
                                     params.min_parallax_norm)
@@ -240,7 +250,7 @@ def _slide_window_old(w: WindowState, prev_acc, prev_gyr) -> WindowState:
     imu_dt[W - 1] = 0.0
     imu_acc[W - 1] = 0.0
     imu_gyr[W - 1] = 0.0
-    imu_cnt[W - 1] = 0
+    imu_cnt[W - 1].zero_()
     imu_acc0[W - 1] = prev_acc
     imu_gyr0[W - 1] = prev_gyr
     return new._replace(pre=_set_row(new.pre, W - 1, fresh), imu_dt=imu_dt,
@@ -279,7 +289,7 @@ def _slide_window_new(w: WindowState, prev_acc, prev_gyr, noise) -> WindowState:
 
     imu_cnt = w.imu_cnt.clone()
     imu_cnt[W - 2] = torch.clamp(cnt9 + w.imu_cnt[W - 1], max=m).to(torch.int32)
-    imu_cnt[W - 1] = 0
+    imu_cnt[W - 1].zero_()
     imu_acc0, imu_gyr0 = w.imu_acc0.clone(), w.imu_gyr0.clone()
     imu_acc0[W - 1] = prev_acc
     imu_gyr0[W - 1] = prev_gyr
@@ -341,16 +351,16 @@ def solve_and_slide(state: EstimatorState, is_kf: bool, params: StaticParams,
     n_solved = torch.sum(solved)
     med_depth = torch.where(
         n_solved > 0,
-        dep_sorted[torch.clamp(torch.div(n_solved, 2, rounding_mode="floor"), 0,
-                               table.depth.shape[0] - 1)],
+        _at(dep_sorted, torch.clamp(torch.div(n_solved, 2, rounding_mode="floor"), 0,
+                                    table.depth.shape[0] - 1)),
         torch.zeros_like(dep_sorted[0]))
 
     fc_cur = torch.clamp(state.frame_count, 0, W - 1).long()
-    cur_mask = state.table.mask[:, fc_cur]
+    cur_mask = state.table.mask.index_select(1, fc_cur.reshape(1))[:, 0]
     n_tracked = torch.sum((state.table.fid >= 0) & cur_mask
                           & (state.table.used_num >= 2)).to(torch.int32)
     diag = StepDiag(
-        is_keyframe=torch.as_tensor(is_kf, device=w.p.device),
+        is_keyframe=torch.full((), is_kf, dtype=torch.bool, device=w.p.device),
         culled_ids=culled_ids, last_track_num=n_tracked,
         solver_cost0=res.cost0, solver_cost=res.cost,
         accepted_steps=res.accepted,

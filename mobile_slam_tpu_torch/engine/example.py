@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from mobile_slam_tpu.config import (CameraConfig, EstimatorConfig,
+from mobile_slam_tpu_torch.config import (CameraConfig, EstimatorConfig,
                                     TrackerConfig, VIOConfig)
 from mobile_slam_tpu_torch.eval.simulation import SimConfig
 

@@ -2,14 +2,16 @@
 subset of mobile_slam_tpu.engine.vio_engine).
 
 Push IMU readings and grayscale frames; each ``process_frame`` runs the
-tracker and the estimator on the engine's device and returns a 4x4 camera
-pose with the status machine of the reference engine (INITIALIZING ->
-TRACKING, estimator rebuilds on divergence or scale runaway, cooldown after
-repeated failures). Initialization runs on the host through the shared
-numpy ``mobile_slam_tpu.init`` stack.
+tracker and the estimator on the engine's device (the card unless the
+caller passes ``device="cpu"``) and returns a 4x4 camera pose with the
+status machine of the reference engine (INITIALIZING -> TRACKING,
+estimator rebuilds on divergence or scale runaway, cooldown after repeated
+failures). ``process_features`` is the feature-level entry point that
+skips the tracker. Initialization runs on the host through the port's
+numpy ``init`` stack.
 
 Not ported yet: pipelined streaming, the packed-transfer paths,
-``process_features``, ``measure_device_step`` and map points.
+``measure_device_step`` and map points.
 """
 
 from __future__ import annotations
@@ -21,9 +23,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from mobile_slam_tpu.config import NUM_SLOTS, VIOConfig, validate_config
-from mobile_slam_tpu.init.alignment import HostFrame, NpPreintegration
-from mobile_slam_tpu.init.initializer import try_initialize
+from mobile_slam_tpu_torch.config import NUM_SLOTS, VIOConfig, validate_config
+from mobile_slam_tpu_torch.init.alignment import HostFrame, NpPreintegration
+from mobile_slam_tpu_torch.init.initializer import try_initialize
 from mobile_slam_tpu_torch.engine import estimator as est
 from mobile_slam_tpu_torch.frontend import tracker as trk
 from mobile_slam_tpu_torch.models.cameras.base import make_camera
@@ -61,6 +63,16 @@ def _np_quat_to_rot(q: np.ndarray) -> np.ndarray:
     ])
 
 
+def require_device(device) -> torch.device:
+    """``torch.device(device)``; raises for a CUDA device on a machine
+    without one (no path falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but torch.cuda.is_available() "
+                           "is False; pass device='cpu' to run on the CPU")
+    return dev
+
+
 def set_full_precision() -> None:
     """Full-fp32 matmuls and convolutions: the estimator's whitened systems
     span ~1e15 and the image ops feed sub-pixel math, so TF32 is wrong here."""
@@ -76,13 +88,13 @@ class VIOEngine:
     VEL_RUNAWAY_FACTOR = 2.0
     DEPTH_EMA_RATE = 0.005
 
-    def __init__(self, cfg: VIOConfig, *, device="cpu", dtype=torch.float32):
+    def __init__(self, cfg: VIOConfig, *, device="cuda", dtype=torch.float32):
         set_full_precision()
         problems = validate_config(cfg)
         if problems:
             raise ValueError(f"invalid config: {problems}")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = require_device(device)
         self.dtype = dtype
         self.camera = make_camera(cfg.camera, dtype=dtype, device=self.device)
         self.params = est.make_params(cfg, dtype=dtype, device=self.device)
@@ -179,8 +191,13 @@ class VIOEngine:
     # Frame processing
     # ------------------------------------------------------------------
 
-    def process_frame(self, image, frame_ts: float) -> FrameResult:
-        """Full image path: track features, then run the estimator."""
+    def process_frame(self, image, frame_ts: float,
+                      imu_override=None) -> FrameResult:
+        """Full image path: track features, then run the estimator.
+
+        imu_override: optional (dts, accs, gyrs) host arrays used instead
+        of draining the engine's IMU buffer (the serving layer replays
+        frames whose IMU slice a chunk already drained)."""
         img = self._t(np.asarray(image))
         if self._t0 is None:
             self._t0 = frame_ts
@@ -188,9 +205,45 @@ class VIOEngine:
             self.tracker_state, img, frame_ts - self._t0, self.camera,
             self.cfg.tracker, self.cfg.camera.focal_length,
             generator=self._gen, banned_ids=self._banned_ids)
-        return self._process_tracked(frame_ts, tout)
+        feats = (tout.ids, tout.obs, tout.uv, tout.vel, tout.valid)
+        return self._process_tracked(frame_ts, feats, imu_override)
 
-    def _frame_input(self, frame_ts, tout: trk.TrackerOutput, dts, accs, gyrs):
+    def process_features(self, frame_ts: float, ids, rays, uv=None, vel=None,
+                         valid=None) -> FrameResult:
+        """Feature-level entry point (bypasses the tracker): ``ids`` (n,),
+        unit-z ``rays`` (n, 3), optional ``uv``/``vel`` (n, 2) and
+        ``valid`` (n,), padded here to the tracker's slot count."""
+        k_pad = self.cfg.tracker.max_points
+        n = len(ids)
+        if n > k_pad:
+            raise ValueError(f"too many features: {n} > {k_pad}")
+
+        def pad(a, shape):
+            out = np.zeros((k_pad,) + shape)
+            if n:
+                out[:n] = a
+            return self._t(out)
+
+        ids_p = np.full(k_pad, -1, np.int32)
+        ids_p[:n] = np.asarray(ids, np.int32)
+        valid_p = np.zeros(k_pad, bool)
+        valid_p[:n] = True if valid is None else np.asarray(valid, bool)
+        feats = (torch.as_tensor(ids_p, device=self.device), pad(np.asarray(rays), (3,)),
+                 pad(uv if uv is not None else np.zeros((n, 2)), (2,)),
+                 pad(vel if vel is not None else np.zeros((n, 2)), (2,)),
+                 torch.as_tensor(valid_p, device=self.device))
+        if self._t0 is None:
+            self._t0 = frame_ts
+        # A frame that enters TRACKING through initialization keeps the
+        # solver's track count, as the image path does.
+        was_tracking = self.status == Status.TRACKING
+        res = self._process_tracked(frame_ts, feats)
+        if was_tracking and res.status == Status.TRACKING:
+            res = res._replace(num_features=int(valid_p.sum()))
+        return res
+
+    def _frame_input(self, frame_ts, feats, dts, accs, gyrs):
+        ids, obs, uv, vel, valid = feats
         m_pad = self.cfg.estimator.max_imu_per_interval
         m = min(len(dts), m_pad)
 
@@ -200,12 +253,12 @@ class VIOEngine:
             return self._t(out)
 
         return est.FrameInput(
-            ts=self._t(frame_ts - self._t0), ids=tout.ids, obs=tout.obs.to(self.dtype),
-            uv=tout.uv.to(self.dtype), vel=tout.vel.to(self.dtype), valid=tout.valid,
+            ts=self._t(frame_ts - self._t0), ids=ids, obs=obs.to(self.dtype),
+            uv=uv.to(self.dtype), vel=vel.to(self.dtype), valid=valid,
             imu_dt=pad(dts, ()), imu_acc=pad(accs, (3,)), imu_gyr=pad(gyrs, (3,)),
             imu_cnt=self._t(m, torch.int32))
 
-    def _process_tracked(self, frame_ts, tout: trk.TrackerOutput) -> FrameResult:
+    def _process_tracked(self, frame_ts, feats, imu_override=None) -> FrameResult:
         if self._first_frame_time is None:
             self._first_frame_time = frame_ts
         if self._cooldown_remaining > 0:
@@ -216,8 +269,14 @@ class VIOEngine:
                 self._first_frame_time = frame_ts
             return FrameResult(False, None, Status.COOLDOWN, 0, False)
 
-        dts, accs, gyrs = self._drain_imu(frame_ts)
-        inp = self._frame_input(frame_ts, tout, dts, accs, gyrs)
+        if imu_override is not None:
+            dts, accs, gyrs = imu_override
+            dts = np.asarray(dts, float)
+            accs = np.asarray(accs, float).reshape(-1, 3)
+            gyrs = np.asarray(gyrs, float).reshape(-1, 3)
+        else:
+            dts, accs, gyrs = self._drain_imu(frame_ts)
+        inp = self._frame_input(frame_ts, feats, dts, accs, gyrs)
         self.state, is_kf = est.bookkeeping_step(self.state, inp, self.params)
         is_kf = bool(is_kf)
         if self.status == Status.TRACKING:

@@ -14,10 +14,12 @@ The dense-eigh A/B path (``enable_sqrt_pipeline(False)``) is not ported.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from mobile_slam_tpu.config import NUM_SLOTS
-from mobile_slam_tpu.solver import layout
+from mobile_slam_tpu_torch.config import NUM_SLOTS
+from mobile_slam_tpu_torch.solver import layout
 from mobile_slam_tpu_torch.models.state import FeatureTable, WindowState, eligible_mask
 from mobile_slam_tpu_torch.solver import assembly
 from mobile_slam_tpu_torch.solver.assembly import Prior, SolverParams, XState
@@ -29,8 +31,31 @@ REL_EIG_EPS = 1e-4
 
 
 def _perm(kind: str, like: torch.Tensor) -> torch.Tensor:
+    return _perm_on(kind, like.dtype, like.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _perm_on(kind: str, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The slide permutation on ``device``, copied there once."""
     return torch.as_tensor(layout.shift_permutation(kind, "float64"),
-                           dtype=like.dtype, device=like.device)
+                           dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _frame0_cols(device: torch.device) -> torch.Tensor:
+    """The tangent columns of window frame 0 on ``device``, copied there once."""
+    return torch.as_tensor(layout.frame_block_indices(0), device=device).long()
+
+
+@functools.lru_cache(maxsize=None)
+def _slide_index(kind: str, device: torch.device) -> torch.Tensor:
+    """Window slot each slot's linearization point comes from after the
+    slide, on ``device``, copied there once."""
+    if kind == "old":
+        sl = [min(k + 1, W - 1) for k in range(W)]
+    else:
+        sl = list(range(W - 2)) + [W - 1, W - 1]
+    return torch.as_tensor(sl, device=device)
 
 
 def _eliminate_lambdas(H, g, H_sl, H_ll, g_l, drop_mask):
@@ -80,11 +105,7 @@ def _householder_eliminate(M: torch.Tensor, cols) -> torch.Tensor:
 
 
 def _permuted_linearization(kind: str, x: XState, ex_t, ex_q) -> dict:
-    if kind == "old":
-        sl = [min(k + 1, W - 1) for k in range(W)]
-    else:
-        sl = list(range(W - 2)) + [W - 1, W - 1]
-    sl = torch.as_tensor(sl, device=x.p.device)
+    sl = _slide_index(kind, x.p.device)
     return dict(p0=x.p[sl], q0=x.q[sl], v0=x.v[sl], ba0=x.ba[sl],
                 bg0=x.bg[sl], ex_t0=ex_t, ex_q0=ex_q, td0=x.td)
 
@@ -95,9 +116,8 @@ def marginalize_old(x: XState, table: FeatureTable, window: WindowState,
     """MARGIN_OLD_KEYFRAME: drop frame 0 and its anchored depths."""
     dtype, dev = x.p.dtype, x.p.device
     elig = eligible_mask(table)
-    imu_valid = torch.zeros(W - 1, dtype=torch.bool, device=dev)
-    imu_valid[0] = True
-    imu_valid = imu_valid & (window.pre.sum_dt[1:] < 10.0) & (window.imu_cnt[1:] > 0)
+    imu_valid = ((torch.arange(W - 1, device=dev) == 0) & (window.pre.sum_dt[1:] < 10.0)
+                 & (window.imu_cnt[1:] > 0))
     proj_valid = assembly.proj_valid_mask(table) & (table.start == 0)[:, None]
     drop_lam = elig & (table.start == 0)
     idx0 = [int(i) for i in layout.frame_block_indices(0)]
@@ -113,7 +133,7 @@ def marginalize_old(x: XState, table: FeatureTable, window: WindowState,
     M = torch.cat([torch.cat([R_f, r_f[:, None]], dim=1),
                    torch.cat([prior.J0, r_pr[:, None]], dim=1)], dim=0)
     M = _householder_eliminate(M, idx0)
-    M[:, idx0] = 0.0                                   # clear roundoff
+    M = M.index_fill(1, _frame0_cols(dev), 0.0)        # clear roundoff
     R = torch.linalg.qr(M, mode="r")[1]                # (S+1, S+1)
     J0 = R[:S, :S] @ _perm("old", M).T
     return Prior(J0=J0, r0=R[:S, S].clone(),

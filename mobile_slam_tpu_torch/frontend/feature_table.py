@@ -11,7 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-from mobile_slam_tpu.config import NUM_SLOTS
+from mobile_slam_tpu_torch.config import NUM_SLOTS
 from mobile_slam_tpu_torch.models.state import FeatureTable
 from mobile_slam_tpu_torch.utils import rotations as rot
 
@@ -27,12 +27,15 @@ class AddResult(NamedTuple):
 
 def _set_rows(base: torch.Tensor, idx: torch.Tensor, vals, col=None) -> torch.Tensor:
     """base.at[idx(, col)].set(vals, mode="drop") with idx == len(base) as
-    the dropped index."""
+    the dropped index. A python ``vals`` and a 0-dim tensor ``col`` are made
+    device tensors first (as python and 0-dim indices they are host reads)."""
     ext = torch.cat([base, torch.zeros_like(base[:1])], dim=0)
+    if not isinstance(vals, torch.Tensor):
+        vals = torch.full((), vals, dtype=base.dtype, device=base.device)
     if col is None:
         ext[idx] = vals
     else:
-        ext[idx, col] = vals
+        ext[idx, torch.as_tensor(col, device=idx.device).expand(idx.shape)] = vals
     return ext[:base.shape[0]]
 
 
@@ -91,8 +94,8 @@ def add_and_check_parallax(table: FeatureTable, ids, obs, uv, vel, valid,
     c1 = torch.clamp(fc - 2, 0, W - 1)
     c2 = torch.clamp(fc - 1, 0, W - 1)
     cond = (new_table.fid >= 0) & (new_table.start <= fc - 2) & (end >= fc - 1)
-    p_i = new_table.obs[:, c1]
-    p_j = new_table.obs[:, c2]
+    p_i = new_table.obs.index_select(1, c1.reshape(1))[:, 0]
+    p_j = new_table.obs.index_select(1, c2.reshape(1))[:, 0]
     u_i = p_i[:, 0] / torch.clamp(p_i[:, 2], min=1e-6)
     v_i = p_i[:, 1] / torch.clamp(p_i[:, 2], min=1e-6)
     du = u_i - p_j[:, 0]

@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from mobile_slam_tpu.config import TrackerConfig
+from mobile_slam_tpu_torch.config import TrackerConfig
 from mobile_slam_tpu_torch.models.cameras.base import Camera
 from mobile_slam_tpu_torch.ops import clahe as clahe_op
 from mobile_slam_tpu_torch.ops import corners, image as im, lk, ransac
@@ -50,7 +50,7 @@ class TrackerOutput(NamedTuple):
 
 
 def init_tracker_state(cfg: TrackerConfig, height: int, width: int, *,
-                       dtype=torch.float32, device="cpu") -> TrackerState:
+                       dtype=torch.float32, device) -> TrackerState:
     K = cfg.max_points
     kw = dict(dtype=dtype, device=device)
     i32 = dict(dtype=torch.int32, device=device)
@@ -109,9 +109,13 @@ def detect_and_track(state: TrackerState, img: torch.Tensor, ts, camera: Camera,
                      cfg: TrackerConfig, focal: float, *,
                      generator: torch.Generator | None = None,
                      ransac_draws: torch.Tensor | None = None,
-                     banned_ids: torch.Tensor | None = None):
+                     banned_ids: torch.Tensor | None = None,
+                     preprocessed=None):
     """One frame. RANSAC samples come from ``ransac_draws`` (N, 8) if given,
-    else from ``generator``. Returns (new_state, TrackerOutput)."""
+    else from ``generator``. ``preprocessed`` is ``preprocess_frame(img,
+    cfg)`` when the caller already ran it (the chunked path runs it for a
+    whole chunk ahead of the frame loop). Returns (new_state,
+    TrackerOutput)."""
     dtype, dev = img.dtype, img.device
     h, w = img.shape
     K = cfg.max_points
@@ -121,7 +125,9 @@ def detect_and_track(state: TrackerState, img: torch.Tensor, ts, camera: Camera,
         banned = torch.any(state.ids[:, None] == banned_ids[None, :], dim=1) & (state.ids >= 0)
         state = state._replace(active=state.active & ~banned)
 
-    img, pyr, st_response = preprocess_frame(img, cfg)
+    if preprocessed is None:
+        preprocessed = preprocess_frame(img, cfg)
+    img, pyr, st_response = preprocessed
 
     params = lk.LKParams(window=cfg.lk_window_size, levels=cfg.lk_pyramid_levels,
                          iters=cfg.lk_iterations, eps=cfg.lk_eps)

@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from mobile_slam_tpu.config import O_BA, O_BG, O_P, O_R, O_V
+from mobile_slam_tpu_torch.config import O_BA, O_BG, O_P, O_R, O_V
 from mobile_slam_tpu_torch.utils import rotations as rot
 
 
@@ -31,11 +31,16 @@ class Preintegration(NamedTuple):
 
 
 def make_noise_cov(acc_n: float, gyr_n: float, acc_w: float, gyr_w: float, *,
-                   dtype=torch.float32, device="cpu") -> torch.Tensor:
+                   dtype=torch.float32, device) -> torch.Tensor:
     """18x18 diagonal noise covariance."""
     d = ([acc_n * acc_n] * 3 + [gyr_n * gyr_n] * 3 + [acc_n * acc_n] * 3
          + [gyr_n * gyr_n] * 3 + [acc_w * acc_w] * 3 + [gyr_w * gyr_w] * 3)
     return torch.diag(torch.tensor(d, dtype=dtype, device=device))
+
+
+def _identity_quat(like: torch.Tensor) -> torch.Tensor:
+    """(1, 0, 0, 0) in ``like``'s dtype, made on its device (no host copy)."""
+    return torch.eye(1, 4, dtype=like.dtype, device=like.device)[0]
 
 
 def identity_preintegration(ba: torch.Tensor, bg: torch.Tensor) -> Preintegration:
@@ -44,7 +49,7 @@ def identity_preintegration(ba: torch.Tensor, bg: torch.Tensor) -> Preintegratio
     kw = dict(dtype=ba.dtype, device=ba.device)
     return Preintegration(
         dp=torch.zeros(batch + (3,), **kw),
-        dq=ba.new_tensor([1.0, 0.0, 0.0, 0.0]).expand(batch + (4,)).clone(),
+        dq=_identity_quat(ba).expand(batch + (4,)).clone(),
         dv=torch.zeros(batch + (3,), **kw),
         jac=torch.eye(15, **kw).expand(batch + (15, 15)).clone(),
         cov=torch.zeros(batch + (15, 15), **kw),
@@ -69,7 +74,7 @@ def _step_quantities(acc0, gyr0, dt, acc, gyr, count, lin_bg):
     gyr_prev = torch.cat([gyr0[..., None, :], gyr[..., :-1, :]], dim=-2)
     un_gyr = 0.5 * (gyr_prev + gyr) - lin_bg[..., None, :]
     dq_step = rot.delta_q(un_gyr * dt[..., None])
-    ident = dt.new_tensor([1.0, 0.0, 0.0, 0.0])
+    ident = _identity_quat(dt)
     dq_step = torch.where(active[..., None], dq_step, ident)
     return active, acc_prev, un_gyr, dq_step
 
@@ -97,7 +102,7 @@ def preintegrate_parallel(acc0, gyr0, dt, acc, gyr, count, lin_ba, lin_bg,
 
     q_prefix = rot.quat_normalize(_prefix_quat(dq_step))     # (..., M, 4)
     R = rot.quat_to_rot(q_prefix)
-    ident_q = dt.new_tensor([1.0, 0.0, 0.0, 0.0])
+    ident_q = _identity_quat(dt)
     q_prev = torch.cat([ident_q.expand(q_prefix[..., :1, :].shape),
                         q_prefix[..., :-1, :]], dim=-2)
     R_prev = rot.quat_to_rot(q_prev)

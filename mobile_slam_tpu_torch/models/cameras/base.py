@@ -13,7 +13,7 @@ from typing import Callable
 
 import torch
 
-from mobile_slam_tpu import config as cfgmod
+from mobile_slam_tpu_torch import config as cfgmod
 from mobile_slam_tpu_torch.models.cameras import equidistant, pinhole
 
 
@@ -48,7 +48,7 @@ class Camera:
 
 
 def make_camera(cam_cfg: cfgmod.CameraConfig, *, dtype=torch.float32,
-                device="cpu") -> Camera:
+                device) -> Camera:
     mt = cam_cfg.model_type.upper()
     if mt == cfgmod.MODEL_PINHOLE:
         mod = pinhole

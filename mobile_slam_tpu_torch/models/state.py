@@ -9,7 +9,7 @@ from typing import NamedTuple
 
 import torch
 
-from mobile_slam_tpu.config import NUM_SLOTS
+from mobile_slam_tpu_torch.config import NUM_SLOTS
 from mobile_slam_tpu_torch.imu.preintegration import (Preintegration,
                                                       identity_preintegration)
 
@@ -45,7 +45,7 @@ class FeatureTable(NamedTuple):
         return torch.sum(self.mask, dim=-1).to(torch.int32)
 
 
-def init_window(max_imu: int, *, dtype=torch.float32, device="cpu") -> WindowState:
+def init_window(max_imu: int, *, dtype=torch.float32, device) -> WindowState:
     W = NUM_SLOTS
     kw = dict(dtype=dtype, device=device)
     zeros3 = torch.zeros((W, 3), **kw)
@@ -63,7 +63,7 @@ def init_window(max_imu: int, *, dtype=torch.float32, device="cpu") -> WindowSta
 
 
 def init_feature_table(max_features: int, *, dtype=torch.float32,
-                       device="cpu") -> FeatureTable:
+                       device) -> FeatureTable:
     F, W = max_features, NUM_SLOTS
     kw = dict(dtype=dtype, device=device)
     i32 = dict(dtype=torch.int32, device=device)

@@ -40,7 +40,7 @@ def occupancy_suppression(response: torch.Tensor, pts: torch.Tensor,
     yi = torch.clamp(torch.round(pts[:, 1]).long(), 0, h - 1)
     flat = torch.where(active, yi * w + xi, h * w)      # h*w = dropped
     occ = torch.zeros(h * w + 1, dtype=response.dtype, device=response.device)
-    occ[flat] = 1.0
+    occ = occ.index_fill(0, flat, 1.0)
     occ = _max_pool_same(occ[:h * w].reshape(h, w), 2 * min_dist + 1)
     return torch.where(occ > 0, torch.zeros_like(response), response)
 

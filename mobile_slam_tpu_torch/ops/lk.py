@@ -24,15 +24,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from mobile_slam_tpu_torch.ops import cuda_build
 
 F32 = torch.float32
 
@@ -150,8 +147,11 @@ def _inside(x, y, h: int, w: int):
 
 
 def track_pyramidal_ref(prev_pyr, next_pyr, pts: torch.Tensor,
-                        active: torch.Tensor, params: LKParams):
-    """Plain version of K1. Returns (pos (K, 2) float32, ok (K,) bool)."""
+                        active: torch.Tensor, params: LKParams,
+                        iterations: list | None = None):
+    """Plain version of K1. Returns (pos (K, 2) float32, ok (K,) bool).
+    Given a list as ``iterations``, appends to it the point-iterations run
+    at each level, coarse first (the work K1 does on these inputs)."""
     win = params.window
     half = (win - 1) // 2
     pad = half + 2
@@ -173,9 +173,12 @@ def track_pyramidal_ref(prev_pyr, next_pyr, pts: torch.Tensor,
         gxx, gxy, gyy, invertible, inv_det = _normal_matrix(
             gx, gy, win2, params.min_eig_threshold)
         conv = ~(act & invertible)
+        n_it = 0
         for _ in range(params.iters):
             if bool(conv.all()):
                 break
+            if iterations is not None:
+                n_it += int((~conv).sum())
             diff = _sample(next_p, cx, cy, win, pad) - t
             b1 = torch.sum(diff * gx, dim=(1, 2))
             b2 = torch.sum(diff * gy, dim=(1, 2))
@@ -185,6 +188,8 @@ def track_pyramidal_ref(prev_pyr, next_pyr, pts: torch.Tensor,
             cx = torch.where(conv, cx, cx + dx)
             cy = torch.where(conv, cy, cy + dy)
             conv = conv | step_conv
+        if iterations is not None:
+            iterations.append(n_it)
         ok = ok & invertible & _inside(cx, cy, h, w)
         if lvl > 0:
             cx, cy = cx * 2.0, cy * 2.0
@@ -195,9 +200,11 @@ def track_pyramidal_ref(prev_pyr, next_pyr, pts: torch.Tensor,
 def refine_template_ref(img: torch.Tensor, t_patch: torch.Tensor,
                         gx: torch.Tensor, gy: torch.Tensor, pos0: torch.Tensor,
                         active: torch.Tensor, window: int, iters: int,
-                        eps: float, max_shift: float):
+                        eps: float, max_shift: float,
+                        iterations: list | None = None):
     """Plain version of K2. Returns (pos (K, 2), ok (K,), resid (K,)),
-    float32."""
+    float32. Given a list as ``iterations``, appends to it the
+    point-iterations run (the work K2 does on these inputs)."""
     k = pos0.shape[0]
     win = window
     pad = (win - 1) // 2 + 2
@@ -216,9 +223,12 @@ def refine_template_ref(img: torch.Tensor, t_patch: torch.Tensor,
 
     cx, cy = x0, y0
     conv = ~(act & invertible)
+    n_it = 0
     for _ in range(iters):
         if bool(conv.all()):
             break
+        if iterations is not None:
+            n_it += int((~conv).sum())
         c = _sample(imgp, cx, cy, win, pad)
         c_zm = c - (torch.sum(c, dim=(1, 2)) / win2)[:, None, None]
         diff = c_zm - t_zm
@@ -235,6 +245,8 @@ def refine_template_ref(img: torch.Tensor, t_patch: torch.Tensor,
         cy = torch.where(conv, cy, y0 + oy * s)
         conv = conv | step_conv
 
+    if iterations is not None:
+        iterations.append(n_it)
     c = _sample(imgp, cx, cy, win, pad)
     c_zm = c - (torch.sum(c, dim=(1, 2)) / win2)[:, None, None]
     resid = torch.sum(torch.abs(c_zm - t_zm), dim=(1, 2)) / win2
@@ -257,52 +269,22 @@ def extract_patches_ref(img: torch.Tensor, centers: torch.Tensor, window: int):
 # ---------------------------------------------------------------------------
 # CUDA kernels: build at first use, bind through ctypes
 # ---------------------------------------------------------------------------
+#
+# Each wrapper is split in two: ``_*_prep`` pads and lays out the inputs
+# (replicate padding, level concatenation, dtype and contiguity) and
+# ``_*_launch`` allocates the outputs and launches the kernel on the
+# current stream, so that a launch can be timed alone on prepared inputs.
 
-_PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "lk_kernels.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
-MAX_WINDOW = 31          # LK_MAX_WIN in the CUDA source
+MAX_WINDOW = 31          # LK_MAX_WIN in csrc/lk_common.cuh
 MAX_LEVELS = 8           # LK_MAX_LEVELS
-
-
-def _find_nvcc() -> str:
-    for env in ("CUDA_HOME", "CUDA_PATH"):
-        root = os.environ.get(env)
-        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
-            return os.path.join(root, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
 @functools.cache
 def build_kernels() -> ctypes.CDLL:
-    """Compile csrc/lk_kernels.cu for sm_90a into BUILD_DIR (keyed by a hash
-    of the source and flags) and load it. Raises with nvcc's output if the
-    build fails, and when no CUDA device is present."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("the LK CUDA kernels need a CUDA device; "
-                           "torch.cuda.is_available() is False")
-    src = _SRC.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = BUILD_DIR / key
-    so = out_dir / "liblk_kernels.so"
-    if not so.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"liblk_kernels.{os.getpid()}.tmp.so"
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    """Compile csrc/lk_kernels.cu for sm_90a (ops/cuda_build.py) and load
+    it. Raises with nvcc's output if the build fails, and when no CUDA
+    device is present."""
+    lib = cuda_build.load("lk_kernels")
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.lk_track_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp, vp, ci,
                                     ci, ci, cf, cf, vp, vp, vp]
@@ -313,15 +295,6 @@ def build_kernels() -> ctypes.CDLL:
     for fn in (lib.lk_track_launch, lib.lk_refine_launch, lib.lk_extract_launch):
         fn.restype = ci
     return lib
-
-
-def _check(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} failed: CUDA error {rc}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _check_window(window: int) -> None:
@@ -338,8 +311,7 @@ def _check_points(pts: torch.Tensor, active: torch.Tensor | None = None) -> int:
     return k
 
 
-def _track_pyramidal_cuda(prev_pyr, next_pyr, pts, active, params: LKParams):
-    lib = build_kernels()
+def _track_prep(prev_pyr, next_pyr, pts, active, params: LKParams):
     _check_window(params.window)
     n_lvl = len(prev_pyr)
     if not 1 <= n_lvl <= MAX_LEVELS or len(next_pyr) != n_lvl:
@@ -349,7 +321,7 @@ def _track_pyramidal_cuda(prev_pyr, next_pyr, pts, active, params: LKParams):
         if im.device != dev or im.dim() != 2:
             raise ValueError("pyramid levels must be 2-D tensors on the "
                              "device of the points")
-    k = _check_points(pts, active)
+    _check_points(pts, active)
     pad = (params.window - 1) // 2 + 2
     prev_p = [_pad(p, pad).reshape(-1) for p in prev_pyr]
     next_p = [_pad(p, pad).reshape(-1) for p in next_pyr]
@@ -357,15 +329,20 @@ def _track_pyramidal_cuda(prev_pyr, next_pyr, pts, active, params: LKParams):
     for p in prev_p:
         offs.append(o)
         o += p.numel()
-    prev_flat = torch.cat(prev_p)
-    next_flat = torch.cat(next_p)
-    pts_c = pts.to(F32).contiguous()
-    act = active.to(torch.int32).contiguous()
+    shapes = [tuple(int(d) for d in p.shape) for p in prev_pyr]
+    return (torch.cat(prev_p), torch.cat(next_p), offs, shapes, pad,
+            pts.to(F32).contiguous(), active.to(torch.int32).contiguous(), params)
+
+
+def _track_launch(prev_flat, next_flat, offs, shapes, pad, pts_c, act,
+                  params: LKParams):
+    lib = build_kernels()
+    k, n_lvl, dev = pts_c.shape[0], len(offs), pts_c.device
     out_pos = torch.empty((k, 2), dtype=F32, device=dev)
     out_ok = torch.empty((k,), dtype=torch.int32, device=dev)
     off_a = (ctypes.c_longlong * n_lvl)(*offs)
-    h_a = (ctypes.c_int * n_lvl)(*[int(p.shape[0]) for p in prev_pyr])
-    w_a = (ctypes.c_int * n_lvl)(*[int(p.shape[1]) for p in prev_pyr])
+    h_a = (ctypes.c_int * n_lvl)(*[h for h, _ in shapes])
+    w_a = (ctypes.c_int * n_lvl)(*[w for _, w in shapes])
     with torch.cuda.device(dev):
         rc = lib.lk_track_launch(
             prev_flat.data_ptr(), next_flat.data_ptr(),
@@ -373,15 +350,18 @@ def _track_pyramidal_cuda(prev_pyr, next_pyr, pts, active, params: LKParams):
             ctypes.cast(w_a, ctypes.c_void_p), n_lvl, pad, pts_c.data_ptr(),
             act.data_ptr(), k, params.window, params.iters, float(params.eps),
             float(params.min_eig_threshold), out_pos.data_ptr(),
-            out_ok.data_ptr(), _stream(pts_c))
-    _check(rc, "lk_track_launch")
+            out_ok.data_ptr(), cuda_build.stream(pts_c))
+    cuda_build.check(rc, "lk_track_launch")
     launch_counts["track_pyramidal"] += 1
     return out_pos, out_ok != 0
 
 
-def _refine_template_cuda(img, t_patch, gx, gy, pos0, active, window, iters,
-                          eps, max_shift):
-    lib = build_kernels()
+def _track_pyramidal_cuda(prev_pyr, next_pyr, pts, active, params: LKParams):
+    return _track_launch(*_track_prep(prev_pyr, next_pyr, pts, active, params))
+
+
+def _refine_prep(img, t_patch, gx, gy, pos0, active, window, iters, eps,
+                 max_shift):
     _check_window(window)
     dev = pos0.device
     k = _check_points(pos0, active)
@@ -393,12 +373,16 @@ def _refine_template_cuda(img, t_patch, gx, gy, pos0, active, window, iters,
         raise ValueError("templates must be (K, window*window)")
     pad = (window - 1) // 2 + 2
     h, w = img.shape
-    imgp = _pad(img, pad).contiguous()
-    tp = t_patch.to(F32).contiguous()
-    gxc = gx.to(F32).contiguous()
-    gyc = gy.to(F32).contiguous()
-    p0 = pos0.to(F32).contiguous()
-    act = active.to(torch.int32).contiguous()
+    return (_pad(img, pad).contiguous(), h, w, pad, t_patch.to(F32).contiguous(),
+            gx.to(F32).contiguous(), gy.to(F32).contiguous(),
+            pos0.to(F32).contiguous(), active.to(torch.int32).contiguous(),
+            window, iters, eps, max_shift)
+
+
+def _refine_launch(imgp, h, w, pad, tp, gxc, gyc, p0, act, window, iters, eps,
+                   max_shift):
+    lib = build_kernels()
+    k, dev = p0.shape[0], p0.device
     out_pos = torch.empty((k, 2), dtype=F32, device=dev)
     out_ok = torch.empty((k,), dtype=torch.int32, device=dev)
     out_res = torch.empty((k,), dtype=F32, device=dev)
@@ -407,33 +391,45 @@ def _refine_template_cuda(img, t_patch, gx, gy, pos0, active, window, iters,
             imgp.data_ptr(), h, w, pad, tp.data_ptr(), gxc.data_ptr(),
             gyc.data_ptr(), p0.data_ptr(), act.data_ptr(), k, window, iters,
             float(eps), float(max_shift), out_pos.data_ptr(), out_ok.data_ptr(),
-            out_res.data_ptr(), _stream(p0))
-    _check(rc, "lk_refine_launch")
+            out_res.data_ptr(), cuda_build.stream(p0))
+    cuda_build.check(rc, "lk_refine_launch")
     launch_counts["refine_template"] += 1
     return out_pos, out_ok != 0, out_res
 
 
-def _extract_patches_cuda(img, centers, window):
-    lib = build_kernels()
+def _refine_template_cuda(img, t_patch, gx, gy, pos0, active, window, iters,
+                          eps, max_shift):
+    return _refine_launch(*_refine_prep(img, t_patch, gx, gy, pos0, active,
+                                        window, iters, eps, max_shift))
+
+
+def _extract_prep(img, centers, window):
     _check_window(window)
     dev = centers.device
     if img.device != dev or img.dim() != 2:
         raise ValueError("extract_patches needs a 2-D image on the device of the centers")
-    k = _check_points(centers)
-    nw = window * window
+    _check_points(centers)
     pad = (window - 1) // 2 + 2
     h, w = img.shape
-    imgp = _pad(img, pad).contiguous()
-    c = centers.to(F32).contiguous()
-    outs = [torch.empty((k, nw), dtype=F32, device=dev) for _ in range(3)]
+    return _pad(img, pad).contiguous(), h, w, pad, centers.to(F32).contiguous(), window
+
+
+def _extract_launch(imgp, h, w, pad, c, window):
+    lib = build_kernels()
+    k, dev = c.shape[0], c.device
+    outs = [torch.empty((k, window * window), dtype=F32, device=dev) for _ in range(3)]
     with torch.cuda.device(dev):
         rc = lib.lk_extract_launch(
             imgp.data_ptr(), h, w, pad, c.data_ptr(), k, window,
             outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
-            _stream(c))
-    _check(rc, "lk_extract_launch")
+            cuda_build.stream(c))
+    cuda_build.check(rc, "lk_extract_launch")
     launch_counts["extract_patches"] += 1
     return tuple(outs)
+
+
+def _extract_patches_cuda(img, centers, window):
+    return _extract_launch(*_extract_prep(img, centers, window))
 
 
 # ---------------------------------------------------------------------------

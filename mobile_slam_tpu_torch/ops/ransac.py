@@ -95,9 +95,12 @@ def find_fundamental_ransac(pts1, pts2, valid, threshold: float, *,
     d = _epipolar_dist(Fh, pts1, pts2)                       # (N, K)
     inl = (d < threshold) & valid[None, :]
     scores = torch.sum(inl, dim=1)
-    best = torch.argmax(scores)
+    best = torch.argmax(scores).reshape(1)     # stays on the device
+    inl_best = inl.index_select(0, best)[0]
+    score_best = scores.index_select(0, best)[0]
+    F_best = Fh.index_select(0, best)[0]
 
-    w = inl[best].to(dtype)
+    w = inl_best.to(dtype)
     A = _design(p1n, p2n)
     AtA = torch.einsum("ri,r,rj->ij", A, w, A)
     _, vecs = eigh64(AtA)
@@ -107,9 +110,9 @@ def find_fundamental_ransac(pts1, pts2, valid, threshold: float, *,
                      torch.eye(3, dtype=dtype, device=Fr.device))
     d_refit = _epipolar_dist(Fr, pts1, pts2)
     inl_refit = (d_refit < threshold) & valid
-    better = torch.sum(inl_refit) >= scores[best]
-    F_out = torch.where(better, Fr, Fh[best])
-    status = torch.where(better, inl_refit, inl[best])
+    better = torch.sum(inl_refit) >= score_best
+    F_out = torch.where(better, Fr, F_best)
+    status = torch.where(better, inl_refit, inl_best)
     return F_out, status
 
 

@@ -4,20 +4,21 @@ mobile_slam_tpu.solver.assembly).
 Jacobians are forward-mode derivatives of each residual with respect to its
 manifold perturbation (``torch.func.jacfwd`` under ``torch.func.vmap`` over
 the 10 IMU factors and the flattened (F x 11) projection grid); the normal
-equations are einsums. The tangent layout comes from
-``mobile_slam_tpu.solver.layout``.
+equations are einsums. The tangent layout comes from ``solver/layout.py``
+(the port's copy of the reference's).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
-from mobile_slam_tpu.config import NUM_SLOTS
-from mobile_slam_tpu.solver import layout
+from mobile_slam_tpu_torch.config import NUM_SLOTS
+from mobile_slam_tpu_torch.solver import layout
 from mobile_slam_tpu_torch.factors import imu_factor, projection
 from mobile_slam_tpu_torch.imu.preintegration import Preintegration
 from mobile_slam_tpu_torch.models.state import FeatureTable, eligible_mask
@@ -28,6 +29,13 @@ S = layout.S
 TD_JOINT_GATE = 0.0
 _PROJ_COLS = np.concatenate([np.arange(layout.POSE_COLS), np.arange(layout.TD_COL, S)])
 _IMU_EMBED = layout.imu_embed_matrices(np.float64)
+
+
+@functools.lru_cache(maxsize=None)
+def _constants(dtype: torch.dtype, device: torch.device):
+    """(_IMU_EMBED, _PROJ_COLS) on ``device``, copied there once."""
+    return (torch.as_tensor(_IMU_EMBED, dtype=dtype, device=device),
+            torch.as_tensor(_PROJ_COLS, device=device))
 
 
 class SolverParams(NamedTuple):
@@ -211,7 +219,7 @@ def build_normal_eqs(x: XState, table: FeatureTable, pre: Preintegration,
     r_imu, J_imu = imu_res_jac(x, pre, imu_sqrt_info, params.gravity)
     w_imu = imu_valid.to(dtype)[:, None]
     r_imu_w = r_imu * w_imu
-    E = torch.as_tensor(_IMU_EMBED, dtype=dtype, device=dev)
+    E, cols = _constants(dtype, dev)
     J_imu_s = torch.einsum("aru,aus->ars", J_imu, E) * w_imu[..., None]
     H_imu = torch.einsum("ari,arj->ij", J_imu_s, J_imu_s)
     g_imu = torch.einsum("ari,ar->i", J_imu_s, r_imu_w)
@@ -241,7 +249,6 @@ def build_normal_eqs(x: XState, table: FeatureTable, pre: Preintegration,
     c2 = params.cauchy_scale * params.cauchy_scale
     cost_proj = 0.5 * torch.sum(c2 * torch.log1p(s_proj / c2) * proj_valid.to(dtype))
 
-    cols = torch.as_tensor(_PROJ_COLS, device=dev)
     H_ss = H_imu.clone()
     H_ss[cols[:, None], cols[None, :]] += H72
     g_s = g_imu.clone()

@@ -14,8 +14,8 @@ from typing import NamedTuple
 
 import torch
 
-from mobile_slam_tpu.config import NUM_SLOTS
-from mobile_slam_tpu.solver import layout
+from mobile_slam_tpu_torch.config import NUM_SLOTS
+from mobile_slam_tpu_torch.solver import layout
 from mobile_slam_tpu_torch.factors.imu_factor import sqrt_info_from_cov
 from mobile_slam_tpu_torch.models.state import FeatureTable, WindowState, eligible_mask
 from mobile_slam_tpu_torch.solver import assembly
@@ -83,9 +83,9 @@ def solve(x0: XState, table: FeatureTable, window: WindowState, prior: Prior,
 
     cost0 = cost_fn(x0)
     x, cost = x0, cost0
-    mu = torch.as_tensor(mu_init, dtype=dtype, device=x0.p.device)
+    mu = torch.full((), mu_init, dtype=dtype, device=x0.p.device)
     n_acc = torch.zeros((), dtype=torch.int32, device=x0.p.device)
-    mu_b = torch.as_tensor(1e-4, dtype=dtype, device=x0.p.device)
+    mu_b = torch.full((), 1e-4, dtype=dtype, device=x0.p.device)
     inf = torch.full_like(cost, float("inf"))
     for _ in range(num_iterations):
         eqs = assembly.build_normal_eqs(x, table, window.pre, imu_sqrt_info,

@@ -45,15 +45,15 @@ def example():
 
 def _port(example):
     _, jp, st, inp = example
-    return (convert.static_params(tonp(jp), dtype=F64),
-            convert.estimator_state(tonp(st), dtype=F64),
-            convert.frame_input(tonp(inp), dtype=F64))
+    return (convert.static_params(tonp(jp), dtype=F64, device="cpu"),
+            convert.estimator_state(tonp(st), dtype=F64, device="cpu"),
+            convert.frame_input(tonp(inp), dtype=F64, device="cpu"))
 
 
 def test_convert_round_trip(example):
     _, _, st, _ = example
     ref = tonp(st)
-    back = convert.to_numpy(convert.estimator_state(ref, dtype=F64))
+    back = convert.to_numpy(convert.estimator_state(ref, dtype=F64, device="cpu"))
     leaves_a, leaves_b = jax.tree.leaves(ref), jax.tree.leaves(tuple(back))
     assert len(leaves_a) == len(leaves_b)
     for a, b in zip(leaves_a, leaves_b):
@@ -82,7 +82,7 @@ def test_preintegration_matches(cnt):
     acc0, gyr0, dt, acc, gyr = _interval(1)
     ba, bg = np.array([0.01, -0.02, 0.005]), np.array([0.002, 0.001, -0.003])
     noise_j = jpre.make_noise_cov(0.05, 0.004, 4e-5, 2e-6, dtype=jnp.float64)
-    noise = pre.make_noise_cov(0.05, 0.004, 4e-5, 2e-6, dtype=F64)
+    noise = pre.make_noise_cov(0.05, 0.004, 4e-5, 2e-6, dtype=F64, device="cpu")
     args_j = [jnp.asarray(x) for x in (acc0, gyr0, dt, acc, gyr)]
     seq = jpre.preintegrate(*args_j, jnp.asarray(cnt), jnp.asarray(ba), jnp.asarray(bg), noise_j)
     par = jpre.preintegrate_parallel(*args_j, jnp.asarray(cnt), jnp.asarray(ba),
@@ -133,7 +133,7 @@ def test_normal_equations_match(example):
     x_t = assembly.XState(p=wt.p, q=wt.q, v=wt.v, ba=wt.ba, bg=wt.bg,
                           lam=torch.full((tt.fid.shape[0],), 0.25, dtype=F64),
                           td=torch.tensor(0.0, dtype=F64))
-    prior_t = convert.to_torch(tonp(prior_j), assembly.Prior, dtype=F64)
+    prior_t = convert.to_torch(tonp(prior_j), assembly.Prior, dtype=F64, device="cpu")
     eq_t = assembly.build_normal_eqs(
         x_t, tt, wt.pre, sqrt_info_from_cov(wt.pre.cov[1:]),
         (wt.pre.sum_dt[1:] < 10.0) & (wt.imu_cnt[1:] > 0), prior_t,

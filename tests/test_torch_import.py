@@ -1,6 +1,8 @@
-"""The port imports without JAX or Triton, and its CUDA kernels fail loudly
-(never fall back) where no GPU is present."""
+"""The port imports without JAX, Triton or anything of the JAX package, its
+entry points default to the card, and its CUDA kernels fail loudly (never
+fall back) where no GPU is present."""
 
+import inspect
 import os
 import subprocess
 import sys
@@ -11,16 +13,18 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
+import importlib
+import pkgutil
 import sys
 import mobile_slam_tpu_torch
-import mobile_slam_tpu_torch.engine.vio_engine
-import mobile_slam_tpu_torch.ops.lk
-import mobile_slam_tpu_torch.convert
-import mobile_slam_tpu_torch.eval.simulation
-import mobile_slam_tpu_torch.engine.example
-bad = [m for m in ("jax", "jaxlib", "triton") if m in sys.modules]
-print("LOADED", bad)
-sys.exit(1 if bad else 0)
+names = [m.name for m in pkgutil.walk_packages(mobile_slam_tpu_torch.__path__,
+                                                "mobile_slam_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = [m for m in sys.modules if m in ("jax", "jaxlib", "triton")
+       or m == "mobile_slam_tpu" or m.startswith("mobile_slam_tpu.")]
+print("IMPORTED", len(names), "LOADED", bad)
+sys.exit(1 if bad or len(names) < 40 else 0)
 """
 
 
@@ -30,6 +34,28 @@ def test_port_imports_without_jax_or_triton():
     proc = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
                           text=True, timeout=300, env=env, cwd=REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("entry", ["VIOEngine", "ChunkedImageServer", "call_overhead.run",
+                                   "lk_pack_probe.run"])
+def test_entry_points_default_to_the_card(entry):
+    from mobile_slam_tpu_torch.engine.serving import ChunkedImageServer
+    from mobile_slam_tpu_torch.engine.vio_engine import VIOEngine
+    from mobile_slam_tpu_torch.probes import call_overhead, lk_pack_probe
+
+    fn = {"VIOEngine": VIOEngine, "ChunkedImageServer": ChunkedImageServer,
+          "call_overhead.run": call_overhead.run, "lk_pack_probe.run": lk_pack_probe.run}[entry]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_engine_on_the_card_raises_without_one():
+    from mobile_slam_tpu.engine.example import tiny_config
+    from mobile_slam_tpu_torch.engine.vio_engine import VIOEngine
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the CPU-only case")
+    with pytest.raises(RuntimeError, match="cuda"):
+        VIOEngine(tiny_config())
 
 
 def test_kernel_module_imports_without_nvcc_and_build_raises_without_gpu():

@@ -72,7 +72,7 @@ CAMERAS = {
 def test_camera_project_lift(model):
     cc = CAMERAS[model]
     jc = jax_camera(cc, dtype=jnp.float64)
-    tc = make_camera(cc, dtype=torch.float64)
+    tc = make_camera(cc, dtype=torch.float64, device="cpu")
     rng = np.random.default_rng(1)
     uv = np.stack([rng.uniform(20, cc.width - 20, 64),
                    rng.uniform(20, cc.height - 20, 64)], -1)
@@ -84,7 +84,7 @@ def test_camera_project_lift(model):
 
 def test_camera_models_not_ported_raise():
     with pytest.raises(NotImplementedError):
-        make_camera(cfgmod.CameraConfig(model_type="MEI"))
+        make_camera(cfgmod.CameraConfig(model_type="MEI"), device="cpu")
 
 
 @pytest.fixture(scope="module")

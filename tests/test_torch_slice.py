@@ -53,10 +53,10 @@ def test_one_tracking_frame_matches_reference():
     jp = jest.make_params(cfg, jnp.float64)
     est_j, inp_j = make_example_state(cfg, jp, jnp.float64)
 
-    ps = convert.static_params(tonp(jp), dtype=F64)
-    est_t = convert.estimator_state(tonp(est_j), dtype=F64)
-    tst_t = convert.tracker_state(tonp(tst_j), dtype=F64)
-    cam = make_camera(cfg.camera, dtype=F64)
+    ps = convert.static_params(tonp(jp), dtype=F64, device="cpu")
+    est_t = convert.estimator_state(tonp(est_j), dtype=F64, device="cpu")
+    tst_t = convert.tracker_state(tonp(tst_j), dtype=F64, device="cpu")
+    cam = make_camera(cfg.camera, dtype=F64, device="cpu")
 
     key, ts = jax.random.PRNGKey(3), 0.15
     tst_j, out_j = step_j(tst_j, jnp.asarray(frames[3]), jnp.asarray(ts), key=key)
@@ -69,7 +69,7 @@ def test_one_tracking_frame_matches_reference():
     # plus the frame's IMU batch.
     fin_j = inp_j._replace(ids=out_j.ids, obs=out_j.obs, uv=out_j.uv.astype(jnp.float64),
                            vel=out_j.vel, valid=out_j.valid)
-    fin_t = convert.frame_input(tonp(inp_j), dtype=F64)._replace(
+    fin_t = convert.frame_input(tonp(inp_j), dtype=F64, device="cpu")._replace(
         ids=out_t.ids, obs=out_t.obs, uv=out_t.uv.to(F64), vel=out_t.vel, valid=out_t.valid)
 
     est_j, kf_j = jax.jit(jest.bookkeeping_step)(est_j, fin_j, jp)
@@ -86,7 +86,7 @@ def test_one_tracking_frame_matches_reference():
 
 def test_engine_reaches_tracking_on_cpu():
     cfg = example.bench_config()
-    cam = make_camera(cfg.camera, dtype=F64)
+    cam = make_camera(cfg.camera, dtype=F64, device="cpu")
     data = sim.simulate(example.bench_sim_config(1.3), cam, cfg.camera.r_ic_mat,
                         cfg.camera.t_ic_vec)
     engine = VIOEngine(cfg, device="cpu", dtype=torch.float32)

@@ -109,8 +109,8 @@ def compare_outputs(out_j, out_t):
 def test_detect_and_track_sequence():
     cfg = tiny_config()
     step_j, st_j = jax_tracker(cfg)
-    st_t = convert.tracker_state(tonp(st_j), dtype=F64)
-    cam = make_camera(cfg.camera, dtype=F64)
+    st_t = convert.tracker_state(tonp(st_j), dtype=F64, device="cpu")
+    cam = make_camera(cfg.camera, dtype=F64, device="cpu")
     before = dict(lk.launch_counts)
     n_valid = []
     for k, img in enumerate(tracker_sequence()):
