@@ -8,15 +8,22 @@ Phases, each printed as it runs:
 0. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; exits with code 42 when no CUDA device is present.
 1. build: compiles every CUDA source of the port (mobile_slam_tpu_torch/
-   csrc: the LK kernels and the probe kernels), one nvcc each, in parallel.
+   csrc: the LK kernels and the probe kernels), one nvcc each, all in
+   parallel, and prints what ptxas says of each kernel.
 2. kernels: each LK kernel (K1-K3) against its plain PyTorch version on the
    card, at the shapes of the main path (two consecutive 512x512 bench
    frames, their 4-level pyramids, 160 slots from the corner detector, a few
-   inactive), held to the parity bars of the CPU tests; the wrapper (padding
+   inactive), held to the parity bars of the CPU tests; the wrapper (layout
    glue + launch) and the plain version timed with CUDA events around each
    call, the launch alone on prepared inputs from a CUDA graph replay
    (device time only); the least time the card could take (bound) from
-   this run's inputs and iteration counts.
+   this run's inputs and iteration counts. K1 and K2 also: the steps of the
+   slowest point (their dependent chain), the device time of one step from
+   two runs with the step count fixed, and the chain floor the two give.
+   Then K1 and K2 on a second, small set from a numpy seed that the bench
+   pair does not reach: the run-time-window body (15, 31), 1 and 3 levels,
+   odd sides, points at and beyond every border, a NaN point, one live slot
+   alone, the iteration cap; same bars.
 3. streaming path: the port's VIOEngine on the bench configuration (KB
    fisheye 512x512, 160 slots, 384 landmarks, 2 LM iterations) over the
    bench's synthetic sequence until TRACKING plus EXTRA_FRAMES frames;
@@ -206,6 +213,125 @@ def bench_pair(data, cam, cfg, sim, example):
     return img0, pyr0, img1, pyr1, pts, valid
 
 
+def _wave_image(rng, h, w):
+    """A band-limited 0..255 texture as a function of (x, y): random
+    sinusoids, so that a shifted copy is exact at any sub-pixel shift.
+    Returns f(shift_x, shift_y) -> (h, w) float32 array, img(x + shift)."""
+    n = 48
+    freq = rng.uniform(1.0 / 40.0, 1.0 / 6.0, n) * rng.choice([-1.0, 1.0], n)
+    ang = rng.uniform(0.0, np.pi, n)
+    fx, fy = freq * np.cos(ang), freq * np.sin(ang)
+    amp, ph = rng.uniform(0.5, 1.0, n), rng.uniform(0.0, 2.0 * np.pi, n)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+
+    def raw(sx, sy):
+        arg = 2.0 * np.pi * (fx[:, None, None] * (xx + sx) + fy[:, None, None] * (yy + sy))
+        return np.sum(amp[:, None, None] * np.sin(arg + ph[:, None, None]), axis=0)
+
+    scale = 127.5 / np.abs(raw(0.0, 0.0)).max()
+    return lambda sx, sy: (127.5 + scale * raw(sx, sy)).clip(0.0, 255.0).astype(np.float32)
+
+
+def _edge_points(rng, h, w):
+    """Interior points, points within a few px of each border and corner,
+    points outside the image, a NaN point and two dead slots."""
+    inner = np.stack([rng.uniform(0.2 * w, 0.8 * w, 12),
+                      rng.uniform(0.2 * h, 0.8 * h, 12)], axis=-1)
+    edge = [[2.3, 0.5 * h], [w - 3.4, 0.45 * h], [0.55 * w, 1.7], [0.4 * w, h - 2.6],
+            [1.5, 1.5], [w - 2.5, h - 2.5], [w - 2.2, 2.4], [3.1, h - 3.3],
+            [9.6, 0.3 * h], [0.7 * w, h - 9.2]]
+    outside = [[-6.0, 20.0], [w + 4.0, 30.0], [40.0, -3.0], [50.0, h + 7.0],
+               [-400.0, -900.0]]
+    pts = np.concatenate([inner, edge, outside, [[np.nan, 10.0]],
+                          [[0.5 * w, 0.5 * h], [0.0, 0.0]]]).astype(np.float32)
+    active = np.ones(len(pts), bool)
+    active[-2:] = False
+    return pts, active
+
+
+SECOND_SET_SEED = 11
+SECOND_SET = (  # name, (h, w), window, pyramid levels, iters, eps, shift, one live slot
+    ("win15 3 levels odd sides", (203, 301), 15, 3, 30, 0.01, (5.3, -3.6), False),
+    ("win31 1 level", (96, 128), 31, 1, 30, 0.01, (0.8, -0.6), False),
+    ("win21 1 level borders", (203, 301), 21, 1, 30, 0.01, (1.7, -1.2), False),
+    ("win21 3 levels one live slot", (203, 301), 21, 3, 30, 0.01, (3.1, 2.2), True),
+    ("win15 1 level iteration cap", (96, 128), 15, 1, 2, 1e-4, (2.4, 1.9), False),
+)
+
+
+def second_set(device):
+    """The cases of SECOND_SET as tensors on ``device``: (name, pyr0, pyr1,
+    pts, active, window, iters, eps)."""
+    from mobile_slam_tpu_torch.ops import image as im
+
+    rng = np.random.RandomState(SECOND_SET_SEED)
+    for name, (h, w), win, levels, iters, eps, shift, one_live in SECOND_SET:
+        img = _wave_image(rng, h, w)
+        pts, active = _edge_points(rng, h, w)
+        if one_live:
+            active[:] = False
+            active[3] = True
+        pyr = [im.build_pyramid(torch.as_tensor(img(sx, sy), device=device), levels - 1)
+               for sx, sy in ((0.0, 0.0), shift)]
+        yield (name, pyr[0], pyr[1], torch.as_tensor(pts, device=device),
+               torch.as_tensor(active, device=device), win, iters, eps)
+
+
+def _same(a, b) -> bool:
+    """Bitwise-equal values, a NaN equal to a NaN."""
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def run_second_case(lk, case):
+    """K1, then K2 from K1's end points (templates of the first image at the
+    start points, as the tracker's anchor refinement has them), each against
+    its plain version at the bars of the main-path check."""
+    name, pyr0, pyr1, pts, active, win, iters, eps = case
+    params = lk.LKParams(window=win, levels=len(pyr0) - 1, iters=iters, eps=eps)
+    steps = []
+    pos_k, ok_k = lk._track_pyramidal_cuda(pyr0, pyr1, pts, active, params)
+    pos_p, ok_p = lk.track_pyramidal_ref(pyr0, pyr1, pts, active, params, steps=steps)
+    _check(bool((ok_k == ok_p).all()), f"K1 [{name}] ok masks differ at slots "
+           f"{torch.nonzero(ok_k != ok_p).flatten().tolist()}: kernel {pos_k[ok_k != ok_p].tolist()} "
+           f"plain {pos_p[ok_k != ok_p].tolist()}")
+    _check(_same(pos_k[~active], pts[~active]) and not bool(ok_k[~active].any()),
+           f"K1 [{name}] moved a dead slot")
+    _check(int(ok_k.sum()) >= 1, f"K1 [{name}] tracked nothing")
+    err1 = float((pos_k - pos_p)[ok_k].norm(dim=-1).max())
+    _check(err1 < POS_TOL, f"K1 [{name}] position difference {err1} px")
+
+    tmpl = lk.extract_patches_ref(pyr0[0], pts, win)
+    start = pos_p + torch.tensor([0.4, -0.3], device=pts.device)
+    args = (pyr1[0], *tmpl, start, active, win, iters, eps, 2.0)
+    steps2 = []
+    pk, okk, rk = lk._refine_template_cuda(*args)
+    pp, okp, rp = lk.refine_template_ref(*args, steps=steps2)
+    _check(bool((okk == okp).all()), f"K2 [{name}] ok masks differ at slots "
+           f"{torch.nonzero(okk != okp).flatten().tolist()}: kernel {pk[okk != okp].tolist()} "
+           f"plain {pp[okk != okp].tolist()}")
+    _check(_same(pk[~active], start[~active]) and not bool(okk[~active].any())
+           and not bool(rk[~active].any()), f"K2 [{name}] moved a dead slot")
+    _check(int(okk.sum()) >= 1, f"K2 [{name}] refined nothing")
+    dpos = float((pk - pp)[okk].norm(dim=-1).max())
+    dres = float((rk - rp)[okk].abs().max())
+    _check(dpos < POS_TOL, f"K2 [{name}] position difference {dpos} px")
+    _check(dres < RESID_TOL, f"K2 [{name}] residual difference {dres}")
+    return dict(case=name, k1_ok=int(ok_k.sum()), k1_err_px=err1,
+                k1_steps_max=int(steps[0].max()), k2_ok=int(okk.sum()),
+                k2_err_px=dpos, k2_resid_err=dres, k2_steps_max=int(steps2[0].max()),
+                live=int(active.sum()))
+
+
+def _step_ms(run, iters=(8, 24)):
+    """Device time of one Gauss-Newton step of a kernel's slowest point:
+    ``run(n)`` launches it with the step count fixed at n per level (eps 0,
+    so no point leaves early); the slope of two graph-timed runs. Returns
+    (ms per step and level, ms of the run's fixed part)."""
+    lo, hi = (_time_graph_ms(lambda n=n: run(n)) for n in iters)
+    step = (hi - lo) / (iters[1] - iters[0])
+    return step, lo - iters[0] * step
+
+
 def phase_kernels(lk, pair, cfg):
     """K1-K3 against their plain versions at main-path shapes."""
     tcfg = cfg.tracker
@@ -222,15 +348,27 @@ def phase_kernels(lk, pair, cfg):
 
     # K1
     pos_k, ok_k = lk._track_pyramidal_cuda(pyr0, pyr1, pts, active, params)
-    its = []    # point-iterations per level, coarse first, for the bound
-    pos_p, ok_p = lk.track_pyramidal_ref(pyr0, pyr1, pts, active, params, iterations=its)
+    its, steps = [], []  # point-iterations per level, coarse first; steps per point
+    pos_p, ok_p = lk.track_pyramidal_ref(pyr0, pyr1, pts, active, params,
+                                         iterations=its, steps=steps)
     torch.cuda.synchronize()
+    _check(lk.build_kernels().lk_track_smem_bytes(win, len(pyr0))
+           == lk.track_smem_bytes(win, len(pyr0)),
+           "ops/lk.py and lk_kernels.cu disagree on K1's shared memory")
     both = ok_k & ok_p
     _check(bool((ok_k == ok_p).all()), "K1 ok masks differ")
     _check(int(both.sum()) >= n_live // 2, f"K1 tracked only {int(both.sum())}")
     err1 = float((pos_k - pos_p)[both].norm(dim=-1).max())
     _check(err1 < POS_TOL, f"K1 position difference {err1} px")
     k1_args = lk._track_prep(pyr0, pyr1, pts, active, params)
+    _check(all(a.data_ptr() == b.data_ptr() for a, b in zip(k1_args[0] + k1_args[1],
+                                                             (*pyr0, *pyr1))),
+           "K1's prep copied a pyramid level")
+    fixed = k1_args[:4]
+    k1_step, k1_fixed = _step_ms(lambda n: lk._track_launch(
+        *fixed, params._replace(iters=n, eps=0.0)))
+    k1_step /= len(pyr0)    # the fixed-step runs take n steps at every level
+    chain = int(steps[0].max())
     flops = (n_live * len(pyr0) * (_template_flops(win) + _sums_flops(win))
              + sum(its) * _track_iter_flops(win))
     results["track_pyramidal"] = dict(
@@ -238,7 +376,9 @@ def phase_kernels(lk, pair, cfg):
         ms=_time_ms(lambda: lk._track_pyramidal_cuda(pyr0, pyr1, pts, active, params)),
         launch_ms=_time_graph_ms(lambda: lk._track_launch(*k1_args)),
         plain_ms=_time_ms(lambda: lk.track_pyramidal_ref(pyr0, pyr1, pts, active, params)),
-        library_ms=None, iterations_per_level=its,
+        library_ms=None, iterations_per_level=its, chain_steps_max=chain,
+        chain_steps_sum=int(steps[0].sum()), step_ms=k1_step, fixed_ms=k1_fixed,
+        chain_floor_ms=chain * k1_step,
         **_bound(_nbytes(*pyr0, *pyr1, pts, active, pos_k, ok_k), flops))
 
     # K3 at the tracked points of the new frame (the FB template)
@@ -266,9 +406,9 @@ def phase_kernels(lk, pair, cfg):
     for name, (img, tmpl, start, iters, max_shift) in settings.items():
         args = (img, *tmpl, start, ok_k, win, iters, tcfg.lk_eps, max_shift)
         pk, okk, rk = lk._refine_template_cuda(*args)
-        n_its = []
-        pp, okp, rp = lk.refine_template_ref(*args, iterations=n_its)
-        n_it = n_its[0]
+        n_its, steps2 = [], []
+        pp, okp, rp = lk.refine_template_ref(*args, iterations=n_its, steps=steps2)
+        n_it, chain2 = n_its[0], int(steps2[0].max())
         torch.cuda.synchronize()
         _check(bool((okk == okp).all()), f"K2 ({name}) ok masks differ")
         m = okk & okp
@@ -278,20 +418,26 @@ def phase_kernels(lk, pair, cfg):
         _check(dres < RESID_TOL, f"K2 ({name}) residual difference {dres}")
         err2 = max(err2, dpos, dres)
         prepped = lk._refine_prep(*args)
+        _check(prepped[0].data_ptr() == img.data_ptr(), "K2's prep copied the image")
+        k2_step, k2_fixed = _step_ms(lambda n: lk._refine_launch(
+            *prepped[:7], n, 0.0, prepped[9]))
         n_act = int(ok_k.sum())
         flops = n_act * _refine_fixed_flops(win) + n_it * _refine_iter_flops(win)
         times[name] = dict(
             ms=_time_ms(lambda: lk._refine_template_cuda(*args)),
             launch_ms=_time_graph_ms(lambda: lk._refine_launch(*prepped)),
             plain_ms=_time_ms(lambda: lk.refine_template_ref(*args)),
-            iterations=n_it,
+            iterations=n_it, chain_steps_max=chain2, step_ms=k2_step,
+            fixed_ms=k2_fixed, chain_floor_ms=chain2 * k2_step,
             **_bound(_nbytes(img, *tmpl, start, ok_k, pk, okk, rk), flops))
         print(f"[phase 2] K2 {name}: iters {iters} max_shift {max_shift} "
               f"ok {int(m.sum())} pos diff {dpos:.3g} px resid diff {dres:.3g} "
               f"wrapper {times[name]['ms']:.4f} ms launch (graph) "
               f"{times[name]['launch_ms']:.4f} ms plain {times[name]['plain_ms']:.4f} ms "
               f"bound {times[name]['bound_ms']:.5f} ms ({times[name]['bound_by']}, "
-              f"{n_it} point-iterations)", flush=True)
+              f"{n_it} point-iterations, slowest point {chain2} steps); one step "
+              f"{k2_step:.6f} ms, fixed part {k2_fixed:.6f} ms, chain floor "
+              f"{chain2 * k2_step:.5f} ms", flush=True)
     results["refine_template"] = dict(
         max_abs_err=err2, library_ms=None, **times["fb"],
         **{f"{k}_anchor": v for k, v in times["anchor"].items()})
@@ -301,8 +447,21 @@ def phase_kernels(lk, pair, cfg):
               f"{r['ms']:.4f} ms launch (graph) {r['launch_ms']:.4f} ms plain "
               f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.5f} ms ({r['bound_by']})",
               flush=True)
+    r = results["track_pyramidal"]
     print(f"[phase 2] K1 point-iterations per level (coarse first): "
-          f"{results['track_pyramidal']['iterations_per_level']}", flush=True)
+          f"{r['iterations_per_level']}, sum {r['chain_steps_sum']}, slowest point "
+          f"{r['chain_steps_max']} steps over all levels; one step {r['step_ms']:.6f} ms, "
+          f"fixed part (templates, launch) {r['fixed_ms']:.6f} ms, chain floor "
+          f"{r['chain_floor_ms']:.5f} ms", flush=True)
+    second = [run_second_case(lk, case) for case in second_set("cuda")]
+    torch.cuda.synchronize()
+    for c in second:
+        print(f"[phase 2] second set [{c['case']}]: {c['live']} live slots; K1 ok "
+              f"{c['k1_ok']} err {c['k1_err_px']:.3g} px, slowest point "
+              f"{c['k1_steps_max']} steps; K2 ok {c['k2_ok']} err "
+              f"{c['k2_err_px']:.3g} px resid err {c['k2_resid_err']:.3g}, slowest "
+              f"point {c['k2_steps_max']} steps", flush=True)
+    results["track_pyramidal"]["second_set"] = second
     return results
 
 
@@ -562,15 +721,22 @@ def main() -> int:
     from mobile_slam_tpu_torch.probes import call_overhead, lk_pack_probe
 
     set_full_precision()
+    cfg = example.bench_config()
     t0 = time.perf_counter()
-    cuda_build.build(*cuda_build.SOURCES)
+    cuda_build.build(*cuda_build.SOURCES)    # one nvcc per library, all at once
     lk.build_kernels()
     call_overhead.build_kernels()
     lk_pack_probe.build_kernels()
     print(f"[phase 1] built {', '.join(cuda_build.SOURCES)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for name in cuda_build.SOURCES:
+        for line in cuda_build.ptxas_report(name):
+            print(f"[phase 1] ptxas {name}: {line}", flush=True)
+    print(f"[phase 1] K1 dynamic shared memory at window {cfg.tracker.lk_window_size}, "
+          f"{cfg.tracker.lk_pyramid_levels + 1} levels: "
+          f"{lk.track_smem_bytes(cfg.tracker.lk_window_size, cfg.tracker.lk_pyramid_levels + 1)}"
+          f" B of {lk.SMEM_LIMIT}", flush=True)
 
-    cfg = example.bench_config()
     cam = make_camera(cfg.camera, dtype=torch.float64, device="cpu")
     data = sim.simulate(example.bench_sim_config(8.0), cam,
                         cfg.camera.r_ic_mat, cfg.camera.t_ic_vec)

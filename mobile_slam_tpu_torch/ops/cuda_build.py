@@ -7,7 +7,9 @@ source, the shared headers and the flags, and loaded with ctypes. ``build``
 starts one nvcc per missing library, all at once, and waits for all of
 them; ``load`` builds one library on first use. Both raise with nvcc's
 output when a build fails, and ``load`` raises when no CUDA device is
-present: nothing falls back to a plain version.
+present: nothing falls back to a plain version. nvcc runs with
+``-Xptxas -v``; its output is kept beside the library and ``ptxas_report``
+reads each kernel's registers, shared memory and spills from it.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -27,7 +30,7 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("lk_kernels", "probe_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _find_nvcc() -> str:
@@ -76,9 +79,26 @@ def build(*names: str) -> None:
         if proc.returncode != 0:
             failures.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
         else:
+            so.with_suffix(".log").write_text(out)    # ptxas -v: see ptxas_report
             os.replace(tmp, so)
     if failures:
         raise RuntimeError("\n".join(failures))
+
+
+def ptxas_report(name: str) -> list[str]:
+    """What ptxas said of each kernel of a built library, one line each:
+    name (with its integer template argument), registers, static shared
+    memory and spills."""
+    log = library_path(name).with_suffix(".log").read_text()
+    lines = []
+    for m in re.finditer(r"Compiling entry function '_Z(\d+)(\w+)'.*?\n.*?\n\s*(\d+) bytes stack"
+                         r" frame, (\d+) bytes spill stores, (\d+) bytes spill loads\n.*?Used "
+                         r"(\d+) registers(?:.*?(\d+) bytes smem)?", log):
+        n, rest, _, st, ld, regs, smem = m.groups()
+        arg = re.match(r"ILi(\d+)E", rest[int(n):])
+        lines.append(f"{rest[:int(n)]}{f'<{arg.group(1)}>' if arg else ''}: {regs} registers, "
+                     f"{smem or 0} B static shared memory, spills {st} B stored / {ld} B loaded")
+    return lines
 
 
 @functools.cache

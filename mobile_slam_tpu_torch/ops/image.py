@@ -52,8 +52,10 @@ GAUSS5 = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
 
 
 def pyr_down(img: torch.Tensor) -> torch.Tensor:
-    """cv2.pyrDown: 5x5 Gaussian then 2x decimation."""
-    return _sep_filter(img, GAUSS5, GAUSS5)[::2, ::2]
+    """cv2.pyrDown: 5x5 Gaussian then 2x decimation. The level is
+    contiguous (not a strided view of the filtered image), which is the
+    layout the LK kernels read without a copy."""
+    return _sep_filter(img, GAUSS5, GAUSS5)[::2, ::2].contiguous()
 
 
 def build_pyramid(img: torch.Tensor, levels: int) -> list[torch.Tensor]:

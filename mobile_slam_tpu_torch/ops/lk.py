@@ -10,11 +10,15 @@ The three public operations dispatch on the device of their inputs:
 A CPU tensor goes to the plain version (``*_ref``); a CUDA tensor launches
 the hand-written kernel of ``csrc/lk_kernels.cu`` or raises. There is no
 fallback between the two. Both compute the function of
-``mobile_slam_tpu.ops.lk_pallas`` in float32: each level is replicate-padded
-by ``half + 2`` and every block origin is clamped in padded coordinates, so
-gradients at the border follow replicate (not ops/lk.py's reflect-101)
-semantics; gradients are Scharr on the fetched block; per-point early
-exit is the masked fixed-count loop that freezes converged points.
+``mobile_slam_tpu.ops.lk_pallas`` in float32: each level behaves as if
+replicate-padded by ``half + 2``, every block origin clamped in padded
+coordinates, so gradients at the border follow replicate (not ops/lk.py's
+reflect-101) semantics; gradients are Scharr on the fetched block;
+per-point early exit is the masked fixed-count loop that freezes converged
+points. The plain versions and K3's wrapper make the padded copy; K1 and K2
+read the tracker's own unpadded levels and clamp each pixel's row and
+column at the load, which gives the same values (``_gather_clamped``), so
+their wrappers copy nothing when the levels are contiguous float32.
 
 Each wrapper adds one to ``launch_counts[name]`` where it launches its
 kernel, and nowhere else.
@@ -72,6 +76,19 @@ def _gather_block(imgp: torch.Tensor, by: torch.Tensor, bx: torch.Tensor,
     c = torch.arange(cols, device=imgp.device)
     return imgp[by[:, None, None] + r[None, :, None],
                 bx[:, None, None] + c[None, None, :]]
+
+
+def _gather_clamped(img: torch.Tensor, by: torch.Tensor, bx: torch.Tensor,
+                    rows: int, cols: int, pad: int) -> torch.Tensor:
+    """``_gather_block(_pad(img, pad), by, bx, rows, cols)`` without the
+    padded copy: each row and column is clamped into the image. The
+    identity K1 and K2 rest on for their borders."""
+    h, w = img.shape
+    r = torch.arange(rows, device=img.device)
+    c = torch.arange(cols, device=img.device)
+    rr = torch.clamp(by[:, None] + r[None, :] - pad, 0, h - 1)
+    cc = torch.clamp(bx[:, None] + c[None, :] - pad, 0, w - 1)
+    return img[rr[:, :, None], cc[:, None, :]]
 
 
 def _bilinear_block(block: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
@@ -148,10 +165,14 @@ def _inside(x, y, h: int, w: int):
 
 def track_pyramidal_ref(prev_pyr, next_pyr, pts: torch.Tensor,
                         active: torch.Tensor, params: LKParams,
-                        iterations: list | None = None):
+                        iterations: list | None = None,
+                        steps: list | None = None):
     """Plain version of K1. Returns (pos (K, 2) float32, ok (K,) bool).
     Given a list as ``iterations``, appends to it the point-iterations run
-    at each level, coarse first (the work K1 does on these inputs)."""
+    at each level, coarse first (the work K1 does on these inputs). Given a
+    list as ``steps``, appends one (K,) int64 tensor: the Gauss-Newton steps
+    each point ran over all levels (its chain; 0 for an inactive slot, at
+    most ``iters`` per level)."""
     win = params.window
     half = (win - 1) // 2
     pad = half + 2
@@ -164,6 +185,8 @@ def track_pyramidal_ref(prev_pyr, next_pyr, pts: torch.Tensor,
     top = float(2 ** (n_lvl - 1))
     cx, cy = px / top, py / top
     ok = torch.ones_like(act)
+    count = iterations is not None or steps is not None
+    n_steps = torch.zeros(px.shape[0], dtype=torch.int64, device=px.device)
     for lvl in range(n_lvl - 1, -1, -1):
         h, w = prev_pyr[lvl].shape
         prev_p = _pad(prev_pyr[lvl], pad)
@@ -173,12 +196,12 @@ def track_pyramidal_ref(prev_pyr, next_pyr, pts: torch.Tensor,
         gxx, gxy, gyy, invertible, inv_det = _normal_matrix(
             gx, gy, win2, params.min_eig_threshold)
         conv = ~(act & invertible)
-        n_it = 0
+        before = n_steps
         for _ in range(params.iters):
             if bool(conv.all()):
                 break
-            if iterations is not None:
-                n_it += int((~conv).sum())
+            if count:
+                n_steps = n_steps + ~conv
             diff = _sample(next_p, cx, cy, win, pad) - t
             b1 = torch.sum(diff * gx, dim=(1, 2))
             b2 = torch.sum(diff * gy, dim=(1, 2))
@@ -189,22 +212,58 @@ def track_pyramidal_ref(prev_pyr, next_pyr, pts: torch.Tensor,
             cy = torch.where(conv, cy, cy + dy)
             conv = conv | step_conv
         if iterations is not None:
-            iterations.append(n_it)
+            iterations.append(int((n_steps - before).sum()))
         ok = ok & invertible & _inside(cx, cy, h, w)
         if lvl > 0:
             cx, cy = cx * 2.0, cy * 2.0
+    if steps is not None:
+        steps.append(n_steps)
     pos = torch.stack([torch.where(act, cx, px), torch.where(act, cy, py)], dim=-1)
     return pos, act & ok
+
+
+def refine_rhs_two_round(c: torch.Tensor, t: torch.Tensor, gx: torch.Tensor,
+                         gy: torch.Tensor):
+    """Right-hand side (b1, b2) of K2's step from (K, win, win) windows
+    ``c`` and raw templates ``t``: both are made zero-mean first (one
+    reduction), then differenced and summed (a second). The form the plain
+    version and the K2 kernel take."""
+    n = float(c.shape[1] * c.shape[2])
+    c_zm = c - (torch.sum(c, dim=(1, 2)) / n)[:, None, None]
+    t_zm = t - (torch.sum(t, dim=(1, 2)) / n)[:, None, None]
+    diff = c_zm - t_zm
+    return torch.sum(diff * gx, dim=(1, 2)), torch.sum(diff * gy, dim=(1, 2))
+
+
+def refine_rhs_one_round(c: torch.Tensor, t: torch.Tensor, gx: torch.Tensor,
+                         gy: torch.Tensor):
+    """The same (b1, b2) from one reduction round: with d = c - t,
+    (c - mean c) - (t - mean t) = d - mean d, so
+    b1 = sum(d gx) - sum(d) / n * sum(gx), likewise b2. d is a residual, so
+    no large numbers cancel (sum(c gx) - mean c * sum(gx) would, on 0..255
+    images). One barrier fewer per step in a kernel; the K2 kernel does not
+    take it (csrc/lk_kernels.cu says why), and ``refine_template_ref`` takes
+    it only on request."""
+    n = float(c.shape[1] * c.shape[2])
+    d = c - t
+    dmean = torch.sum(d, dim=(1, 2)) / n
+    return (torch.sum(d * gx, dim=(1, 2)) - dmean * torch.sum(gx, dim=(1, 2)),
+            torch.sum(d * gy, dim=(1, 2)) - dmean * torch.sum(gy, dim=(1, 2)))
 
 
 def refine_template_ref(img: torch.Tensor, t_patch: torch.Tensor,
                         gx: torch.Tensor, gy: torch.Tensor, pos0: torch.Tensor,
                         active: torch.Tensor, window: int, iters: int,
                         eps: float, max_shift: float,
-                        iterations: list | None = None):
+                        iterations: list | None = None,
+                        steps: list | None = None, one_round: bool = False):
     """Plain version of K2. Returns (pos (K, 2), ok (K,), resid (K,)),
     float32. Given a list as ``iterations``, appends to it the
-    point-iterations run (the work K2 does on these inputs)."""
+    point-iterations run (the work K2 does on these inputs); given a list
+    as ``steps``, appends one (K,) int64 tensor of the steps each point ran
+    (0 for an inactive slot, at most ``iters``). ``one_round`` takes the
+    step's right-hand side from ``refine_rhs_one_round`` instead of from the
+    two zero-mean patches."""
     k = pos0.shape[0]
     win = window
     pad = (win - 1) // 2 + 2
@@ -223,17 +282,15 @@ def refine_template_ref(img: torch.Tensor, t_patch: torch.Tensor,
 
     cx, cy = x0, y0
     conv = ~(act & invertible)
-    n_it = 0
+    count = iterations is not None or steps is not None
+    n_steps = torch.zeros(k, dtype=torch.int64, device=pos0.device)
+    rhs = refine_rhs_one_round if one_round else refine_rhs_two_round
     for _ in range(iters):
         if bool(conv.all()):
             break
-        if iterations is not None:
-            n_it += int((~conv).sum())
-        c = _sample(imgp, cx, cy, win, pad)
-        c_zm = c - (torch.sum(c, dim=(1, 2)) / win2)[:, None, None]
-        diff = c_zm - t_zm
-        b1 = torch.sum(diff * gx3, dim=(1, 2))
-        b2 = torch.sum(diff * gy3, dim=(1, 2))
+        if count:
+            n_steps = n_steps + ~conv
+        b1, b2 = rhs(_sample(imgp, cx, cy, win, pad), t3, gx3, gy3)
         dx = -(gyy * b1 - gxy * b2) * inv_det
         dy = -(gxx * b2 - gxy * b1) * inv_det
         ox, oy = (cx + dx) - x0, (cy + dy) - y0
@@ -246,7 +303,9 @@ def refine_template_ref(img: torch.Tensor, t_patch: torch.Tensor,
         conv = conv | step_conv
 
     if iterations is not None:
-        iterations.append(n_it)
+        iterations.append(int(n_steps.sum()))
+    if steps is not None:
+        steps.append(n_steps)
     c = _sample(imgp, cx, cy, win, pad)
     c_zm = c - (torch.sum(c, dim=(1, 2)) / win2)[:, None, None]
     resid = torch.sum(torch.abs(c_zm - t_zm), dim=(1, 2)) / win2
@@ -270,13 +329,36 @@ def extract_patches_ref(img: torch.Tensor, centers: torch.Tensor, window: int):
 # CUDA kernels: build at first use, bind through ctypes
 # ---------------------------------------------------------------------------
 #
-# Each wrapper is split in two: ``_*_prep`` pads and lays out the inputs
-# (replicate padding, level concatenation, dtype and contiguity) and
-# ``_*_launch`` allocates the outputs and launches the kernel on the
+# Each wrapper is split in two: ``_*_prep`` checks and lays out the inputs
+# and ``_*_launch`` allocates the outputs and launches the kernel on the
 # current stream, so that a launch can be timed alone on prepared inputs.
+# K1's and K2's prep hands the kernel the caller's own tensors: a level
+# that is contiguous float32 (what ``ops/image.build_pyramid`` makes) is not
+# copied, any other is copied once to that layout; ``active`` and ``ok`` are
+# bool tensors the kernel reads and writes as bytes. K3's prep still makes
+# the replicate-padded copy its kernel reads.
 
 MAX_WINDOW = 31          # LK_MAX_WIN in csrc/lk_common.cuh
 MAX_LEVELS = 8           # LK_MAX_LEVELS
+BLOCK_WARPS = 4          # LK_NWARP: warps per point slot in K1 / K2
+SMEM_LIMIT = 232448 - 1024   # LK_SMEM_LIMIT: dynamic bytes a block may ask for
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of csrc/lk_kernels.cu's entry points."""
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.lk_configure.argtypes = []
+    lib.lk_track_smem_bytes.argtypes = [ci, ci]
+    lib.lk_track_launch.argtypes = [vp, vp, vp, vp, ci, vp, vp, ci, ci, ci,
+                                    cf, cf, vp, vp, vp]
+    lib.lk_refine_launch.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, ci, ci,
+                                     ci, cf, cf, vp, vp, vp, vp]
+    lib.lk_extract_launch.argtypes = [vp, ci, ci, ci, vp, ci, ci, vp, vp, vp,
+                                      vp]
+    for fn in (lib.lk_configure, lib.lk_track_smem_bytes, lib.lk_track_launch,
+               lib.lk_refine_launch, lib.lk_extract_launch):
+        fn.restype = ci
+    return lib
 
 
 @functools.cache
@@ -284,17 +366,29 @@ def build_kernels() -> ctypes.CDLL:
     """Compile csrc/lk_kernels.cu for sm_90a (ops/cuda_build.py) and load
     it. Raises with nvcc's output if the build fails, and when no CUDA
     device is present."""
-    lib = cuda_build.load("lk_kernels")
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.lk_track_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp, vp, ci,
-                                    ci, ci, cf, cf, vp, vp, vp]
-    lib.lk_refine_launch.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, vp, ci,
-                                     ci, ci, cf, cf, vp, vp, vp, vp]
-    lib.lk_extract_launch.argtypes = [vp, ci, ci, ci, vp, ci, ci, vp, vp, vp,
-                                      vp]
-    for fn in (lib.lk_track_launch, lib.lk_refine_launch, lib.lk_extract_launch):
-        fn.restype = ci
-    return lib
+    return _bind(cuda_build.load("lk_kernels"))
+
+
+_configured: set = set()    # indices of the devices lk_configure has run on
+
+
+def _configure(lib: ctypes.CDLL) -> None:
+    """Let K1 ask for its dynamic shared memory on the current device. The
+    attribute is per device, so this runs once for each card, at its first
+    K1 launch; that launch must not be inside a CUDA-graph capture."""
+    index = torch.cuda.current_device()
+    if index not in _configured:
+        cuda_build.check(lib.lk_configure(), "lk_configure")
+        _configured.add(index)
+
+
+def track_smem_bytes(window: int, n_levels: int) -> int:
+    """Dynamic shared memory K1 asks for (lk_track_smem_bytes in
+    csrc/lk_kernels.cu): three window^2 patches per level and one template
+    build's scratch per warp, in float32."""
+    n3, n1 = window + 3, window + 1
+    return 4 * (n_levels * 3 * window * window
+                + BLOCK_WARPS * (n3 * n3 + 2 * n1 * n1))
 
 
 def _check_window(window: int) -> None:
@@ -311,6 +405,11 @@ def _check_points(pts: torch.Tensor, active: torch.Tensor | None = None) -> int:
     return k
 
 
+def _f32c(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when it is contiguous float32, else one copy that is."""
+    return t.to(F32).contiguous()
+
+
 def _track_prep(prev_pyr, next_pyr, pts, active, params: LKParams):
     _check_window(params.window)
     n_lvl = len(prev_pyr)
@@ -318,42 +417,41 @@ def _track_prep(prev_pyr, next_pyr, pts, active, params: LKParams):
         raise ValueError(f"bad pyramid depth {n_lvl}/{len(next_pyr)}")
     dev = pts.device
     for im in (*prev_pyr, *next_pyr):
-        if im.device != dev or im.dim() != 2:
-            raise ValueError("pyramid levels must be 2-D tensors on the "
-                             "device of the points")
+        if im.device != dev or im.dim() != 2 or im.numel() == 0:
+            raise ValueError("pyramid levels must be non-empty 2-D tensors "
+                             "on the device of the points")
+    for a, b in zip(prev_pyr, next_pyr):
+        if a.shape != b.shape:
+            raise ValueError(f"pyramid levels differ: {tuple(a.shape)} / {tuple(b.shape)}")
     _check_points(pts, active)
-    pad = (params.window - 1) // 2 + 2
-    prev_p = [_pad(p, pad).reshape(-1) for p in prev_pyr]
-    next_p = [_pad(p, pad).reshape(-1) for p in next_pyr]
-    offs, o = [], 0
-    for p in prev_p:
-        offs.append(o)
-        o += p.numel()
-    shapes = [tuple(int(d) for d in p.shape) for p in prev_pyr]
-    return (torch.cat(prev_p), torch.cat(next_p), offs, shapes, pad,
-            pts.to(F32).contiguous(), active.to(torch.int32).contiguous(), params)
+    smem = track_smem_bytes(params.window, n_lvl)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"LK window {params.window} over {n_lvl} levels asks "
+                         f"{smem} bytes of shared memory; a block may have {SMEM_LIMIT}")
+    return (tuple(_f32c(p) for p in prev_pyr), tuple(_f32c(p) for p in next_pyr),
+            _f32c(pts), active.bool().contiguous(), params)
 
 
-def _track_launch(prev_flat, next_flat, offs, shapes, pad, pts_c, act,
-                  params: LKParams):
+def _track_launch(prev_lv, next_lv, pts_c, act, params: LKParams):
     lib = build_kernels()
-    k, n_lvl, dev = pts_c.shape[0], len(offs), pts_c.device
+    k, n_lvl, dev = pts_c.shape[0], len(prev_lv), pts_c.device
     out_pos = torch.empty((k, 2), dtype=F32, device=dev)
-    out_ok = torch.empty((k,), dtype=torch.int32, device=dev)
-    off_a = (ctypes.c_longlong * n_lvl)(*offs)
-    h_a = (ctypes.c_int * n_lvl)(*[h for h, _ in shapes])
-    w_a = (ctypes.c_int * n_lvl)(*[w for _, w in shapes])
+    out_ok = torch.empty((k,), dtype=torch.bool, device=dev)
+    prev_a = (ctypes.c_void_p * n_lvl)(*[p.data_ptr() for p in prev_lv])
+    next_a = (ctypes.c_void_p * n_lvl)(*[p.data_ptr() for p in next_lv])
+    h_a = (ctypes.c_int * n_lvl)(*[p.shape[0] for p in prev_lv])
+    w_a = (ctypes.c_int * n_lvl)(*[p.shape[1] for p in prev_lv])
     with torch.cuda.device(dev):
+        _configure(lib)
         rc = lib.lk_track_launch(
-            prev_flat.data_ptr(), next_flat.data_ptr(),
-            ctypes.cast(off_a, ctypes.c_void_p), ctypes.cast(h_a, ctypes.c_void_p),
-            ctypes.cast(w_a, ctypes.c_void_p), n_lvl, pad, pts_c.data_ptr(),
-            act.data_ptr(), k, params.window, params.iters, float(params.eps),
-            float(params.min_eig_threshold), out_pos.data_ptr(),
-            out_ok.data_ptr(), cuda_build.stream(pts_c))
+            ctypes.addressof(prev_a), ctypes.addressof(next_a),
+            ctypes.addressof(h_a), ctypes.addressof(w_a), n_lvl,
+            pts_c.data_ptr(), act.data_ptr(), k, params.window, params.iters,
+            float(params.eps), float(params.min_eig_threshold),
+            out_pos.data_ptr(), out_ok.data_ptr(), cuda_build.stream(pts_c))
     cuda_build.check(rc, "lk_track_launch")
     launch_counts["track_pyramidal"] += 1
-    return out_pos, out_ok != 0
+    return out_pos, out_ok
 
 
 def _track_pyramidal_cuda(prev_pyr, next_pyr, pts, active, params: LKParams):
@@ -369,32 +467,30 @@ def _refine_prep(img, t_patch, gx, gy, pos0, active, window, iters, eps,
     for t in (img, t_patch, gx, gy, active):
         if t.device != dev:
             raise ValueError("refine_template inputs must share one device")
+    if img.dim() != 2 or img.numel() == 0:
+        raise ValueError("refine_template needs a non-empty 2-D image")
     if t_patch.shape != (k, nw) or gx.shape != (k, nw) or gy.shape != (k, nw):
         raise ValueError("templates must be (K, window*window)")
-    pad = (window - 1) // 2 + 2
-    h, w = img.shape
-    return (_pad(img, pad).contiguous(), h, w, pad, t_patch.to(F32).contiguous(),
-            gx.to(F32).contiguous(), gy.to(F32).contiguous(),
-            pos0.to(F32).contiguous(), active.to(torch.int32).contiguous(),
-            window, iters, eps, max_shift)
+    return (_f32c(img), _f32c(t_patch), _f32c(gx), _f32c(gy), _f32c(pos0),
+            active.bool().contiguous(), window, iters, eps, max_shift)
 
 
-def _refine_launch(imgp, h, w, pad, tp, gxc, gyc, p0, act, window, iters, eps,
-                   max_shift):
+def _refine_launch(img, tp, gxc, gyc, p0, act, window, iters, eps, max_shift):
     lib = build_kernels()
     k, dev = p0.shape[0], p0.device
+    h, w = img.shape
     out_pos = torch.empty((k, 2), dtype=F32, device=dev)
-    out_ok = torch.empty((k,), dtype=torch.int32, device=dev)
+    out_ok = torch.empty((k,), dtype=torch.bool, device=dev)
     out_res = torch.empty((k,), dtype=F32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.lk_refine_launch(
-            imgp.data_ptr(), h, w, pad, tp.data_ptr(), gxc.data_ptr(),
+            img.data_ptr(), h, w, tp.data_ptr(), gxc.data_ptr(),
             gyc.data_ptr(), p0.data_ptr(), act.data_ptr(), k, window, iters,
             float(eps), float(max_shift), out_pos.data_ptr(), out_ok.data_ptr(),
             out_res.data_ptr(), cuda_build.stream(p0))
     cuda_build.check(rc, "lk_refine_launch")
     launch_counts["refine_template"] += 1
-    return out_pos, out_ok != 0, out_res
+    return out_pos, out_ok, out_res
 
 
 def _refine_template_cuda(img, t_patch, gx, gy, pos0, active, window, iters,
