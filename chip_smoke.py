@@ -9,7 +9,9 @@ Phases, each printed as it runs:
    versions; exits with code 42 when no CUDA device is present.
 1. build: compiles every CUDA source of the port (mobile_slam_tpu_torch/
    csrc: the LK kernels and the probe kernels), one nvcc each, all in
-   parallel, and prints what ptxas says of each kernel.
+   parallel, and prints what ptxas says of each kernel and how many of
+   each kernel's global loads its machine code (cuobjdump) keeps inside
+   loops; fails if P2's noarith mode keeps fewer per-step loads than full.
 2. kernels: each LK kernel (K1-K3) against its plain PyTorch version on the
    card, at the shapes of the main path (two consecutive 512x512 bench
    frames, their 4-level pyramids, 160 slots from the corner detector, a few
@@ -17,13 +19,17 @@ Phases, each printed as it runs:
    glue + launch) and the plain version timed with CUDA events around each
    call, the launch alone on prepared inputs from a CUDA graph replay
    (device time only); the least time the card could take (bound) from
-   this run's inputs and iteration counts. K1 and K2 also: the steps of the
+   this run's inputs and iteration counts (K3 and, in phase 5, P2 count
+   only the image pixels their blocks read; K1 and K2 still count every
+   level whole). K1 and K2 also: the steps of the
    slowest point (their dependent chain), the device time of one step from
    two runs with the step count fixed, and the chain floor the two give.
-   Then K1 and K2 on a second, small set from a numpy seed that the bench
-   pair does not reach: the run-time-window body (15, 31), 1 and 3 levels,
-   odd sides, points at and beyond every border, a NaN point, one live slot
-   alone, the iteration cap; same bars.
+   Every wrapper's prep is checked to hand over the caller's images
+   uncopied. Then K1, K2 and K3 on a second, small set from a numpy seed
+   that the bench pair does not reach: the run-time-window body (15, 31), 1
+   and 3 levels, odd sides, points at and beyond every border, a NaN point
+   (K3's patches NaN on both sides), one live slot alone, the iteration
+   cap; same bars.
 3. streaming path: the port's VIOEngine on the bench configuration (KB
    fisheye 512x512, 160 slots, 384 landmarks, 2 LM iterations) over the
    bench's synthetic sequence until TRACKING plus EXTRA_FRAMES frames;
@@ -43,7 +49,8 @@ Phases, each printed as it runs:
    mode's witness within 1e-4 relative), then
    their drivers: ms/step against launches per step eagerly and under a
    CUDA graph, and ms per call of each P2 mode with the attribution, on
-   both pairs.
+   both pairs; P2 full's device time per step and its fixed part (slope of
+   two step counts, as K1's in phase 2).
 
 Prints a JSON line of per-kernel results, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Any failed check raises.
@@ -73,8 +80,8 @@ KERNELS = {     # name -> (source, TPU kernel it replaces)
 LK_PER_FRAME = {"track_pyramidal": 1, "refine_template": 2, "extract_patches": 2}
 POS_TOL = 0.02      # px, K1/K2/P2-full position bar
 P2_DISP_TOL = 1e-6  # px, P2's other modes: constant or zero steps
-P2_WIT_RTOL = 1e-4  # P2 witness: float32 sums of 441 terms, full's windows
-                    # up to POS_TOL apart
+P2_WIT_RTOL = 1e-4  # P2 witness: float32 sums of 8 x 441 terms, full's
+                    # windows up to POS_TOL apart
 RESID_TOL = 0.05    # K2 residual bar (0..255 scale)
 PATCH_TOL = 1e-3    # K3 patch bar
 ATE_TOL = 0.05      # m, Sim3-aligned
@@ -149,6 +156,28 @@ def _bound(nbytes: float, flops: float) -> dict:
 
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _origin(c, back, pad, n, side):
+    """block_origin of csrc/lk_common.cuh for a tensor of coordinates: the
+    floor (NaN as 0, held to +-2^24) less ``back``, clamped in the level of
+    side n padded by ``pad``, returned unpadded (may be negative)."""
+    f = torch.floor(torch.nan_to_num(c, nan=0.0)).clamp(-2 ** 24, 2 ** 24).long()
+    return (f - back + pad).clamp(0, n + 2 * pad - side) - pad
+
+
+def _footprint_bytes(img, oy, ox, side):
+    """Bytes of the distinct pixels of ``img`` that side x side blocks at
+    origins (oy, ox) read, each row and column clamped into the image as the
+    kernels load them: what a kernel that reads only those blocks must
+    move, once each."""
+    h, w = img.shape
+    span = torch.arange(side, device=oy.device)
+    rows = (oy[:, None] + span).clamp(0, h - 1)
+    cols = (ox[:, None] + span).clamp(0, w - 1)
+    seen = torch.zeros((h, w), dtype=torch.bool, device=img.device)
+    seen[rows[:, :, None], cols[:, None, :]] = True
+    return int(seen.sum()) * img.element_size()
 
 
 # Floating-point operations of the LK building blocks, counted from the
@@ -283,9 +312,11 @@ def _same(a, b) -> bool:
 
 
 def run_second_case(lk, case):
-    """K1, then K2 from K1's end points (templates of the first image at the
-    start points, as the tracker's anchor refinement has them), each against
-    its plain version at the bars of the main-path check."""
+    """K1, K3 at the start points on the first image, then K2 from K1's end
+    points (the plain templates of the first image at the start points, as
+    the tracker's anchor refinement has them), each against its plain
+    version at the bars of the main-path check; K3's patches at a NaN centre
+    are NaN on both sides."""
     name, pyr0, pyr1, pts, active, win, iters, eps = case
     params = lk.LKParams(window=win, levels=len(pyr0) - 1, iters=iters, eps=eps)
     steps = []
@@ -301,6 +332,12 @@ def run_second_case(lk, case):
     _check(err1 < POS_TOL, f"K1 [{name}] position difference {err1} px")
 
     tmpl = lk.extract_patches_ref(pyr0[0], pts, win)
+    nan = pts.isnan().any(dim=-1)
+    err3 = 0.0
+    for a, b in zip(lk._extract_patches_cuda(pyr0[0], pts, win), tmpl):
+        _check(_same(a[nan], b[nan]), f"K3 [{name}] differs at a NaN centre")
+        err3 = max(err3, float((a - b)[~nan].abs().max()))
+    _check(err3 < PATCH_TOL, f"K3 [{name}] patch difference {err3}")
     start = pos_p + torch.tensor([0.4, -0.3], device=pts.device)
     args = (pyr1[0], *tmpl, start, active, win, iters, eps, 2.0)
     steps2 = []
@@ -316,7 +353,7 @@ def run_second_case(lk, case):
     dres = float((rk - rp)[okk].abs().max())
     _check(dpos < POS_TOL, f"K2 [{name}] position difference {dpos} px")
     _check(dres < RESID_TOL, f"K2 [{name}] residual difference {dres}")
-    return dict(case=name, k1_ok=int(ok_k.sum()), k1_err_px=err1,
+    return dict(case=name, k3_err=err3, k1_ok=int(ok_k.sum()), k1_err_px=err1,
                 k1_steps_max=int(steps[0].max()), k2_ok=int(okk.sum()),
                 k2_err_px=dpos, k2_resid_err=dres, k2_steps_max=int(steps2[0].max()),
                 live=int(active.sum()))
@@ -388,13 +425,20 @@ def phase_kernels(lk, pair, cfg):
     err3 = max(float((a - b).abs().max()) for a, b in zip(t_k, t_p))
     _check(err3 < PATCH_TOL, f"K3 patch difference {err3}")
     k3_args = lk._extract_prep(img1, new_pts, win)
+    _check(k3_args[0].data_ptr() == img1.data_ptr(), "K3's prep copied the image")
+    # Bytes: the pixels of the slots' (win+3)^2 blocks (their union), the
+    # centres, the three patches.
+    half, (h1, w1) = (win - 1) // 2, img1.shape
+    k3_read = _footprint_bytes(
+        img1, _origin(new_pts[:, 1], half + 1, half + 2, h1, win + 3),
+        _origin(new_pts[:, 0], half + 1, half + 2, w1, win + 3), win + 3)
     results["extract_patches"] = dict(
         max_abs_err=err3,
         ms=_time_ms(lambda: lk._extract_patches_cuda(img1, new_pts, win)),
         launch_ms=_time_graph_ms(lambda: lk._extract_launch(*k3_args)),
         plain_ms=_time_ms(lambda: lk.extract_patches_ref(img1, new_pts, win)),
-        library_ms=None,
-        **_bound(_nbytes(img1, new_pts, *t_k), new_pts.shape[0] * _template_flops(win)))
+        library_ms=None, image_bytes_read=k3_read,
+        **_bound(k3_read + _nbytes(new_pts, *t_k), new_pts.shape[0] * _template_flops(win)))
 
     # K2 at both tracker settings: FB backward pass and anchor refinement.
     anchor = lk.extract_patches_ref(img0, pts, win)
@@ -456,12 +500,14 @@ def phase_kernels(lk, pair, cfg):
     second = [run_second_case(lk, case) for case in second_set("cuda")]
     torch.cuda.synchronize()
     for c in second:
-        print(f"[phase 2] second set [{c['case']}]: {c['live']} live slots; K1 ok "
+        print(f"[phase 2] second set [{c['case']}]: {c['live']} live slots; K3 err "
+              f"{c['k3_err']:.3g}; K1 ok "
               f"{c['k1_ok']} err {c['k1_err_px']:.3g} px, slowest point "
               f"{c['k1_steps_max']} steps; K2 ok {c['k2_ok']} err "
               f"{c['k2_err_px']:.3g} px resid err {c['k2_resid_err']:.3g}, slowest "
               f"point {c['k2_steps_max']} steps", flush=True)
     results["track_pyramidal"]["second_set"] = second
+    results["extract_patches"]["second_set_max_err"] = max(c["k3_err"] for c in second)
     return results
 
 
@@ -637,7 +683,7 @@ def phase_probes(lk, pair):
     # the main path's: the bench frame pair at level 0 and its live slots.
     # full is held at the K1 bar. The other modes step by constants or by
     # exactly 0, so their displacement is held at P2_DISP_TOL, and every
-    # mode's witness (the sum of its last compared window, which shows the
+    # mode's witness (the sum of every window it compared, which shows the
     # loads and the resampling the positions cannot) at P2_WIT_RTOL.
     _, pyr0, _, pyr1, pts_main, valid = pair
     p2_inputs = {
@@ -664,6 +710,19 @@ def phase_probes(lk, pair):
     win, k = p2.WIN, q.shape[0]
     flops = k * (_template_flops(win) + _sums_flops(win)
                  + p2.ITERS * _track_iter_flops(win))
+    # Bytes of full: the template blocks in the first image and the windows
+    # its steps sweep in the second (positions of the plain version before
+    # each step), each pixel once, plus the points and both outputs. The
+    # images are padded: origins are clamped into them, in their coordinates.
+    half, n = (win - 1) // 2, prev_p.shape[0] - 2 * p2.PAD
+    at = [q] + [p2.lk_probe_ref(q, prev_p, next_p, p2.PAD, "full", i)[0]
+                for i in range(1, p2.ITERS)]
+    steps = torch.cat(at)
+    p2_read = (_footprint_bytes(prev_p, _origin(q[:, 1], half + 1, p2.PAD, n, win + 3) + p2.PAD,
+                                _origin(q[:, 0], half + 1, p2.PAD, n, win + 3) + p2.PAD, win + 3)
+               + _footprint_bytes(next_p, _origin(steps[:, 1], half, p2.PAD, n, win + 1) + p2.PAD,
+                                  _origin(steps[:, 0], half, p2.PAD, n, win + 1) + p2.PAD,
+                                  win + 1))
     results["lk_pack_probe"] = dict(
         max_abs_err=max(err2.values()), max_abs_err_by_inputs_mode=err2,
         witness_rel_err_by_inputs_mode=wit2, library_ms=None, points=k,
@@ -671,7 +730,7 @@ def phase_probes(lk, pair):
         launch_ms=_time_graph_ms(
             lambda: p2._lk_probe_cuda(q, prev_p, next_p, p2.PAD, "full")),
         plain_ms=_time_ms(lambda: p2.lk_probe_ref(q, prev_p, next_p, p2.PAD, "full")),
-        **_bound(_nbytes(q, prev_p, next_p, a, wa), flops))
+        image_bytes_read=p2_read, **_bound(p2_read + _nbytes(q, a, wa), flops))
     print(f"[phase 5] P1 max err {err}, P2 displacement err by inputs and mode "
           f"{err2}, witness relative err {wit2}", flush=True)
 
@@ -691,6 +750,9 @@ def phase_probes(lk, pair):
         median_displacement=r2["median_displacement"],
         bench_mode_ms=r2_bench["ms"],
         bench_per_point_iter_us=r2_bench["per_point_iter_us"])
+    p2_step, p2_fixed = _step_ms(lambda n: p2._lk_probe_cuda(q, prev_p, next_p, p2.PAD,
+                                                             "full", n))
+    results["lk_pack_probe"].update(step_ms=p2_step, fixed_ms=p2_fixed)
     for n in r1["eager"]:
         print(f"[phase 5] P1 calls/step={n}: eager {r1['eager'][n]:.4f} ms/step, "
               f"graph {r1['graph'][n]:.4f} ms/step", flush=True)
@@ -701,7 +763,8 @@ def phase_probes(lk, pair):
           f"{r2['per_point_iter_us']}", flush=True)
     print(f"[phase 5] P2 on the bench frame pair ({k} points): ms/call "
           f"{r2_bench['ms']}; per point-iteration us "
-          f"{r2_bench['per_point_iter_us']}", flush=True)
+          f"{r2_bench['per_point_iter_us']}; full: one step {p2_step:.6f} ms, fixed "
+          f"part (template, launch) {p2_fixed:.6f} ms", flush=True)
     for name in ("call_overhead", "lk_pack_probe"):
         r = results[name]
         _check(r["launches"] > 0, f"{name}: no launch on its driver's path")
@@ -732,6 +795,17 @@ def main() -> int:
     for name in cuda_build.SOURCES:
         for line in cuda_build.ptxas_report(name):
             print(f"[phase 1] ptxas {name}: {line}", flush=True)
+    # P2's stripped modes must keep the per-step loads they claim: noarith
+    # (mode 3) loads each step's window like full (mode 0), inside the loop.
+    loads = {}
+    for name in cuda_build.SOURCES:
+        loads.update(cuda_build.sass_loop_loads(name))
+    for kern, (inner, total) in loads.items():
+        print(f"[phase 1] sass {kern}: {inner} global loads inside loops, {total} in all",
+              flush=True)
+    full, noarith = loads["lk_probe_kernel<0>"][0], loads["lk_probe_kernel<3>"][0]
+    _check(full > 0 and noarith >= full, f"P2 noarith keeps {noarith} loads in its "
+           f"step loop, full {full}")
     print(f"[phase 1] K1 dynamic shared memory at window {cfg.tracker.lk_window_size}, "
           f"{cfg.tracker.lk_pyramid_levels + 1} levels: "
           f"{lk.track_smem_bytes(cfg.tracker.lk_window_size, cfg.tracker.lk_pyramid_levels + 1)}"

@@ -1,13 +1,10 @@
 // Device helpers shared by the LK kernels (lk_kernels.cu) and the LK
-// cost-attribution probe (probe_kernels.cu): warp reductions, the clamped
-// block origin, fp32 bilinear weights, the template block with its block
-// Scharr gradients, the per-iteration window sample and the 2x2 setup.
+// cost-attribution probe (probe_kernels.cu): warp and block reductions, the
+// clamped block origin, fp32 bilinear weights, the template block with its
+// block Scharr gradients, the clamped window sample and the 2x2 setup.
 //
-// Two families. The one-warp helpers (build_template, sample_patch) serve
-// K3 and P2: one 32-thread block per point slot, replicate-padded images.
-// The block helpers further down (floor_sat, sample_clamped,
-// build_template_clamped, block_sum) serve K1 and K2: LK_THREADS threads per
-// point slot, unpadded images with the border clamp taken at the load.
+// Every LK kernel (K1-K3, P2) runs LK_THREADS threads (LK_NWARP warps) per
+// point slot and takes the border clamp at the load.
 
 #pragma once
 
@@ -17,7 +14,7 @@
 #define LK_MAX_WIN 31
 #define LK_MAX_LEVELS 8
 #define LK_WARP 32
-#define LK_NWARP 4  // warps per point slot in K1 / K2
+#define LK_NWARP 4  // warps per point slot
 #define LK_THREADS (LK_NWARP * LK_WARP)
 // Dynamic shared memory a block may ask for: the 232,448 bytes an H100 SM
 // gives one block, less 1 KB kept for the kernels' static arrays.
@@ -41,82 +38,12 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// floor(x) as int; NaN maps to 0 and out-of-range values saturate (the
-// caller clamps the result into the padded image either way).
-__device__ __forceinline__ int floor_int(float x) { return __float2int_rd(x); }
-
 // Bilinear value at (r, c) + (fy, fx) inside a row-major block of width ld.
 __device__ __forceinline__ float bil(const float* b, int ld, int r, int c,
                                      float w00, float w01, float w10,
                                      float w11) {
   const float* p = b + r * ld + c;
   return w00 * p[0] + w01 * p[1] + w10 * p[ld] + w11 * p[ld + 1];
-}
-
-// Loads the (win+3)^2 template block at padded origin (by, bx), computes
-// its block Scharr gradients and the bilinear template / gradient patches
-// (win*win each) into shared memory. Returns the structure-tensor sums.
-__device__ void build_template(const float* __restrict__ img, int wp, int by,
-                               int bx, float fx, float fy, int win,
-                               float* tb, float* gxb, float* gyb, float* tp,
-                               float* gx, float* gy, float* sxx, float* sxy,
-                               float* syy) {
-  const int lane = threadIdx.x;
-  const int n3 = win + 3, n1 = win + 1, nw = win * win;
-  for (int i = lane; i < n3 * n3; i += LK_WARP) {
-    const int r = i / n3, c = i - r * n3;
-    tb[i] = img[(long long)(by + r) * wp + bx + c];
-  }
-  __syncwarp();
-  for (int i = lane; i < n1 * n1; i += LK_WARP) {
-    const int r = i / n1, c = i - r * n1;
-    const float* t = tb + r * n3 + c;
-    const float right = 3.0f * t[2] + 10.0f * t[n3 + 2] + 3.0f * t[2 * n3 + 2];
-    const float left = 3.0f * t[0] + 10.0f * t[n3] + 3.0f * t[2 * n3];
-    const float bot = 3.0f * t[2 * n3] + 10.0f * t[2 * n3 + 1] + 3.0f * t[2 * n3 + 2];
-    const float top = 3.0f * t[0] + 10.0f * t[1] + 3.0f * t[2];
-    gxb[i] = (right - left) / 32.0f;
-    gyb[i] = (bot - top) / 32.0f;
-  }
-  __syncwarp();
-  const float w00 = (1.0f - fx) * (1.0f - fy), w01 = fx * (1.0f - fy);
-  const float w10 = (1.0f - fx) * fy, w11 = fx * fy;
-  float a = 0.f, b = 0.f, c2 = 0.f;
-  for (int i = lane; i < nw; i += LK_WARP) {
-    const int r = i / win, c = i - r * win;
-    const float t = bil(tb, n3, r + 1, c + 1, w00, w01, w10, w11);
-    const float u = bil(gxb, n1, r, c, w00, w01, w10, w11);
-    const float v = bil(gyb, n1, r, c, w00, w01, w10, w11);
-    tp[i] = t;
-    gx[i] = u;
-    gy[i] = v;
-    a += u * u;
-    b += u * v;
-    c2 += v * v;
-  }
-  *sxx = warp_sum(a);
-  *sxy = warp_sum(b);
-  *syy = warp_sum(c2);
-  __syncwarp();
-}
-
-// Bilinear win x win patch of the padded image at subpixel (x, y), with the
-// (win+1)^2 block origin clamped in padded coordinates; written to out.
-__device__ void sample_patch(const float* __restrict__ img, int hp, int wp,
-                             int pad, int win, float x, float y, float* out) {
-  const int half = (win - 1) / 2, n1 = win + 1, nw = win * win;
-  const float x0 = floorf(x), y0 = floorf(y);
-  const int bx = clampi(floor_int(x) - half + pad, 0, wp - n1);
-  const int by = clampi(floor_int(y) - half + pad, 0, hp - n1);
-  const float fx = x - x0, fy = y - y0;
-  const float w00 = (1.0f - fx) * (1.0f - fy), w01 = fx * (1.0f - fy);
-  const float w10 = (1.0f - fx) * fy, w11 = fx * fy;
-  const float* base = img + (long long)by * wp + bx;
-  for (int i = threadIdx.x; i < nw; i += LK_WARP) {
-    const int r = i / win, c = i - r * win;
-    out[i] = bil(base, wp, r, c, w00, w01, w10, w11);
-  }
-  __syncwarp();
 }
 
 __device__ __forceinline__ void solve_setup(float gxx, float gxy, float gyy,
@@ -130,8 +57,8 @@ __device__ __forceinline__ void solve_setup(float gxx, float gxy, float gyy,
 }
 
 // ---------------------------------------------------------------------------
-// Block helpers of K1 / K2: LK_THREADS threads per point slot, borders
-// clamped at the load.
+// Block helpers: LK_THREADS threads per point slot, borders clamped at the
+// load.
 //
 // The replicate-padded copy of an (h, w) level holds, at padded (r, c),
 // img[clamp(r - pad, 0, h - 1)][clamp(c - pad, 0, w - 1)]. The kernels keep
@@ -183,11 +110,45 @@ __device__ __forceinline__ int block_origin(float x, int back, int pad, int len,
   return clampi(floor_sat(x) - back + pad, 0, len + 2 * pad - n) - pad;
 }
 
-// build_template on ONE WARP of a larger block, reading the unpadded level
-// with the border clamp: the (win+3)^2 block at unpadded origin (by, bx),
-// its block Scharr gradients and the bilinear template / gradient patches
-// (win*win each) into shared memory. Returns the structure-tensor sums in
-// every lane. WIN > 0 fixes the window when compiling (constant divisions).
+// The (win+3)^2 block at unpadded origin (by, bx) of an (h, w) level into
+// tb, each pixel's row and column clamped into the level: thread t of NT
+// loads pixels t, t + NT, ... The caller synchronises before reading tb.
+template <int WIN, int NT>
+__device__ __forceinline__ void load_block(const float* __restrict__ img,
+                                           int h, int w, int by, int bx,
+                                           int win_rt, int t, float* tb) {
+  const int n3 = (WIN > 0 ? WIN : win_rt) + 3;
+  for (int i = t; i < n3 * n3; i += NT) {
+    const int r = i / n3, c = i - r * n3;
+    tb[i] = img[clampi(by + r, 0, h - 1) * w + clampi(bx + c, 0, w - 1)];
+  }
+}
+
+// Block Scharr gradients (/32) of tb over its inner (win+1)^2 into gxb /
+// gyb: thread t of NT takes pixels t, t + NT, ... The caller synchronises
+// before reading them.
+template <int WIN, int NT>
+__device__ __forceinline__ void scharr_block(const float* tb, int win_rt, int t,
+                                             float* gxb, float* gyb) {
+  const int n1 = (WIN > 0 ? WIN : win_rt) + 1, n3 = n1 + 2;
+  for (int i = t; i < n1 * n1; i += NT) {
+    const int r = i / n1, c = i - r * n1;
+    const float* p = tb + r * n3 + c;
+    const float right = 3.0f * p[2] + 10.0f * p[n3 + 2] + 3.0f * p[2 * n3 + 2];
+    const float left = 3.0f * p[0] + 10.0f * p[n3] + 3.0f * p[2 * n3];
+    const float bot = 3.0f * p[2 * n3] + 10.0f * p[2 * n3 + 1] + 3.0f * p[2 * n3 + 2];
+    const float top = 3.0f * p[0] + 10.0f * p[1] + 3.0f * p[2];
+    gxb[i] = (right - left) / 32.0f;
+    gyb[i] = (bot - top) / 32.0f;
+  }
+}
+
+// The template of ONE WARP of a larger block (K1 builds one level per
+// warp), reading the unpadded level with the border clamp: the (win+3)^2
+// block at unpadded origin (by, bx), its block Scharr gradients and the
+// bilinear template / gradient patches (win*win each) into shared memory.
+// Returns the structure-tensor sums in every lane. WIN > 0 fixes the window
+// when compiling (constant divisions).
 template <int WIN>
 __device__ void build_template_clamped(const float* __restrict__ img, int h,
                                        int w, int by, int bx, float fx,
@@ -198,21 +159,9 @@ __device__ void build_template_clamped(const float* __restrict__ img, int h,
   const int win = WIN > 0 ? WIN : win_rt;
   const int lane = threadIdx.x & (LK_WARP - 1);
   const int n3 = win + 3, n1 = win + 1, nw = win * win;
-  for (int i = lane; i < n3 * n3; i += LK_WARP) {
-    const int r = i / n3, c = i - r * n3;
-    tb[i] = img[clampi(by + r, 0, h - 1) * w + clampi(bx + c, 0, w - 1)];
-  }
+  load_block<WIN, LK_WARP>(img, h, w, by, bx, win, lane, tb);
   __syncwarp();
-  for (int i = lane; i < n1 * n1; i += LK_WARP) {
-    const int r = i / n1, c = i - r * n1;
-    const float* t = tb + r * n3 + c;
-    const float right = 3.0f * t[2] + 10.0f * t[n3 + 2] + 3.0f * t[2 * n3 + 2];
-    const float left = 3.0f * t[0] + 10.0f * t[n3] + 3.0f * t[2 * n3];
-    const float bot = 3.0f * t[2 * n3] + 10.0f * t[2 * n3 + 1] + 3.0f * t[2 * n3 + 2];
-    const float top = 3.0f * t[0] + 10.0f * t[1] + 3.0f * t[2];
-    gxb[i] = (right - left) / 32.0f;
-    gyb[i] = (bot - top) / 32.0f;
-  }
+  scharr_block<WIN, LK_WARP>(tb, win, lane, gxb, gyb);
   __syncwarp();
   const float w00 = (1.0f - fx) * (1.0f - fy), w01 = fx * (1.0f - fy);
   const float w10 = (1.0f - fx) * fy, w11 = fx * fy;
@@ -233,6 +182,40 @@ __device__ void build_template_clamped(const float* __restrict__ img, int h,
   *sxy = warp_sum(b);
   *syy = warp_sum(c2);
   __syncwarp();
+}
+
+// The template of a point on the WHOLE block (K3, P2): all LK_THREADS
+// threads load the (win+3)^2 block at unpadded origin (by, bx) with the
+// border clamp into tb (about 4.5 pixels each at window 21), one barrier,
+// its block Scharr gradients into gxb / gyb, one barrier; then each thread
+// forms the bilinear template and gradients at (fx, fy) of its own window
+// pixels (pr[j], pc[j]) in registers, 0 where a pixel lies outside the
+// window. tb, gxb and gyb stay readable until the caller writes them.
+// Must be reached by every thread of the block.
+template <int WIN>
+__device__ __forceinline__ void block_template(
+    const float* __restrict__ img, int h, int w, int by, int bx, float fx,
+    float fy, int win_rt, float* tb, float* gxb, float* gyb,
+    const int (&pr)[lk_per_thread(WIN)], const int (&pc)[lk_per_thread(WIN)],
+    float (&tv)[lk_per_thread(WIN)], float (&gxv)[lk_per_thread(WIN)],
+    float (&gyv)[lk_per_thread(WIN)]) {
+  const int win = WIN > 0 ? WIN : win_rt;
+  const int n3 = win + 3, n1 = win + 1, nw = win * win;
+  load_block<WIN, LK_THREADS>(img, h, w, by, bx, win, threadIdx.x, tb);
+  __syncthreads();
+  scharr_block<WIN, LK_THREADS>(tb, win, threadIdx.x, gxb, gyb);
+  __syncthreads();
+  const float w00 = (1.0f - fx) * (1.0f - fy), w01 = fx * (1.0f - fy);
+  const float w10 = (1.0f - fx) * fy, w11 = fx * fy;
+#pragma unroll
+  for (int j = 0; j < lk_per_thread(WIN); ++j) {
+    tv[j] = gxv[j] = gyv[j] = 0.f;
+    if (lk_live<WIN>(j, threadIdx.x + j * LK_THREADS, nw)) {
+      tv[j] = bil(tb, n3, pr[j] + 1, pc[j] + 1, w00, w01, w10, w11);
+      gxv[j] = bil(gxb, n1, pr[j], pc[j], w00, w01, w10, w11);
+      gyv[j] = bil(gyb, n1, pr[j], pc[j], w00, w01, w10, w11);
+    }
+  }
 }
 
 // Sums v[0..N) over the LK_THREADS threads of the block: warp shuffles, one

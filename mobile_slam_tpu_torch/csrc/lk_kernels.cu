@@ -56,8 +56,18 @@
 // the card mostly idle; filling it (a batch of streams in the grid) is for
 // a caller that has one.
 //
-// K3 keeps the earlier design: one warp per point slot on a replicate-padded
-// image, the template staged in shared memory.
+// Design of K3, the same block form with no loop: all LK_THREADS threads
+// load the (win+3)^2 template block (576 pixels at window 21, ~4.5 per
+// thread) into shared memory with the border clamp, one barrier, the block
+// Scharr gradients over the inner (win+1)^2, one barrier; then each thread
+// forms the template and gradients of its <= 4 window pixels in registers
+// and writes them straight to global memory, consecutive threads to
+// consecutive floats (coalesced). No reduction feeds an output and the
+// per-pixel expressions are those of the plain version, so the patches do
+// not depend on the block shape. Bound: bytes (the pixels of the slots'
+// blocks read once, 3 x win^2 floats written per slot), which at the main
+// path's shapes is below the cost of one launch, so the launch is what is
+// left; window 21 is again a template parameter.
 //
 // Semantics kept from the TPU kernels: every block origin is clamped in
 // PADDED coordinates, pad = half + 2 (a point that wanders further reads a
@@ -334,33 +344,44 @@ lk_refine_kernel(const float* __restrict__ img, int h, int w,
   }
 }
 
-__global__ void __launch_bounds__(LK_WARP)
-lk_extract_kernel(const float* __restrict__ img, int h, int w, int pad,
-                  const float* __restrict__ centers, int K, int win,
+template <int WIN>
+__global__ void __launch_bounds__(LK_THREADS)
+lk_extract_kernel(const float* __restrict__ img, int h, int w,
+                  const float* __restrict__ centers, int win_rt,
                   float* __restrict__ out_t, float* __restrict__ out_gx,
                   float* __restrict__ out_gy) {
-  __shared__ float tb[(LK_MAX_WIN + 3) * (LK_MAX_WIN + 3)];
-  __shared__ float gxb[(LK_MAX_WIN + 1) * (LK_MAX_WIN + 1)];
-  __shared__ float gyb[(LK_MAX_WIN + 1) * (LK_MAX_WIN + 1)];
-  __shared__ float tp[LK_MAX_WIN * LK_MAX_WIN];
-  __shared__ float gx[LK_MAX_WIN * LK_MAX_WIN];
-  __shared__ float gy[LK_MAX_WIN * LK_MAX_WIN];
+  constexpr int PER = lk_per_thread(WIN);
+  constexpr int NMAX = WIN > 0 ? WIN : LK_MAX_WIN;
+  __shared__ float tb[(NMAX + 3) * (NMAX + 3)];
+  __shared__ float gxb[(NMAX + 1) * (NMAX + 1)];
+  __shared__ float gyb[(NMAX + 1) * (NMAX + 1)];
 
   const int k = blockIdx.x;
-  if (k >= K) return;
-  const int half = (win - 1) / 2, n3 = win + 3, nw = win * win;
-  const int hp = h + 2 * pad, wp = w + 2 * pad;
+  const int tid = threadIdx.x;
+  const int win = WIN > 0 ? WIN : win_rt;
+  const int half = (win - 1) / 2, pad = half + 2, n3 = win + 3, nw = win * win;
   const float tx = centers[2 * k], ty = centers[2 * k + 1];
-  const int tbx = clampi(floor_int(tx) - half - 1 + pad, 0, wp - n3);
-  const int tby = clampi(floor_int(ty) - half - 1 + pad, 0, hp - n3);
-  float sxx, sxy, syy;
-  build_template(img, wp, tby, tbx, tx - floorf(tx), ty - floorf(ty), win, tb,
-                 gxb, gyb, tp, gx, gy, &sxx, &sxy, &syy);
+  int pr[PER], pc[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = tid + j * LK_THREADS;
+    pr[j] = i / win;
+    pc[j] = i - pr[j] * win;
+  }
+  float tv[PER], gxv[PER], gyv[PER];
+  block_template<WIN>(img, h, w, block_origin(ty, half + 1, pad, h, n3),
+                      block_origin(tx, half + 1, pad, w, n3), tx - floorf(tx),
+                      ty - floorf(ty), win, tb, gxb, gyb, pr, pc, tv, gxv, gyv);
+  // Straight from registers: consecutive threads write consecutive floats.
   const long long row = (long long)k * nw;
-  for (int i = threadIdx.x; i < nw; i += LK_WARP) {
-    out_t[row + i] = tp[i];
-    out_gx[row + i] = gx[i];
-    out_gy[row + i] = gy[i];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = tid + j * LK_THREADS;
+    if (lk_live<WIN>(j, i, nw)) {
+      out_t[row + i] = tv[j];
+      out_gx[row + i] = gxv[j];
+      out_gy[row + i] = gyv[j];
+    }
   }
 }
 
@@ -437,12 +458,18 @@ int lk_refine_launch(const float* img, int h, int w, const float* t_patch,
   return (int)cudaGetLastError();
 }
 
-int lk_extract_launch(const float* img, int h, int w, int pad,
-                      const float* centers, int K, int win, float* out_t,
-                      float* out_gx, float* out_gy, cudaStream_t stream) {
-  if (win < 3 || win > LK_MAX_WIN || K < 1) return (int)cudaErrorInvalidValue;
-  lk_extract_kernel<<<K, LK_WARP, 0, stream>>>(img, h, w, pad, centers, K, win,
-                                               out_t, out_gx, out_gy);
+// img: one contiguous (h, w) float32 image, unpadded.
+int lk_extract_launch(const float* img, int h, int w, const float* centers,
+                      int K, int win, float* out_t, float* out_gx,
+                      float* out_gy, cudaStream_t stream) {
+  if (win < 3 || win > LK_MAX_WIN || K < 1 || h < 1 || w < 1)
+    return (int)cudaErrorInvalidValue;
+  if (win == 21)
+    lk_extract_kernel<21><<<K, LK_THREADS, 0, stream>>>(
+        img, h, w, centers, win, out_t, out_gx, out_gy);
+  else
+    lk_extract_kernel<0><<<K, LK_THREADS, 0, stream>>>(
+        img, h, w, centers, win, out_t, out_gx, out_gy);
   return (int)cudaGetLastError();
 }
 

@@ -15,10 +15,10 @@ replicate-padded by ``half + 2``, every block origin clamped in padded
 coordinates, so gradients at the border follow replicate (not ops/lk.py's
 reflect-101) semantics; gradients are Scharr on the fetched block;
 per-point early exit is the masked fixed-count loop that freezes converged
-points. The plain versions and K3's wrapper make the padded copy; K1 and K2
-read the tracker's own unpadded levels and clamp each pixel's row and
-column at the load, which gives the same values (``_gather_clamped``), so
-their wrappers copy nothing when the levels are contiguous float32.
+points. The plain versions make the padded copy; the three kernels read the
+tracker's own unpadded images and clamp each pixel's row and column at the
+load, which gives the same values (``_gather_clamped``), so their wrappers
+copy nothing when the images are contiguous float32.
 
 Each wrapper adds one to ``launch_counts[name]`` where it launches its
 kernel, and nowhere else.
@@ -332,15 +332,14 @@ def extract_patches_ref(img: torch.Tensor, centers: torch.Tensor, window: int):
 # Each wrapper is split in two: ``_*_prep`` checks and lays out the inputs
 # and ``_*_launch`` allocates the outputs and launches the kernel on the
 # current stream, so that a launch can be timed alone on prepared inputs.
-# K1's and K2's prep hands the kernel the caller's own tensors: a level
+# Each prep hands the kernel the caller's own tensors: an image or level
 # that is contiguous float32 (what ``ops/image.build_pyramid`` makes) is not
 # copied, any other is copied once to that layout; ``active`` and ``ok`` are
-# bool tensors the kernel reads and writes as bytes. K3's prep still makes
-# the replicate-padded copy its kernel reads.
+# bool tensors the kernel reads and writes as bytes.
 
 MAX_WINDOW = 31          # LK_MAX_WIN in csrc/lk_common.cuh
 MAX_LEVELS = 8           # LK_MAX_LEVELS
-BLOCK_WARPS = 4          # LK_NWARP: warps per point slot in K1 / K2
+BLOCK_WARPS = 4          # LK_NWARP: warps per point slot
 SMEM_LIMIT = 232448 - 1024   # LK_SMEM_LIMIT: dynamic bytes a block may ask for
 
 
@@ -353,8 +352,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                     cf, cf, vp, vp, vp]
     lib.lk_refine_launch.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, ci, ci,
                                      ci, cf, cf, vp, vp, vp, vp]
-    lib.lk_extract_launch.argtypes = [vp, ci, ci, ci, vp, ci, ci, vp, vp, vp,
-                                      vp]
+    lib.lk_extract_launch.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp, vp, vp]
     for fn in (lib.lk_configure, lib.lk_track_smem_bytes, lib.lk_track_launch,
                lib.lk_refine_launch, lib.lk_extract_launch):
         fn.restype = ci
@@ -502,21 +500,21 @@ def _refine_template_cuda(img, t_patch, gx, gy, pos0, active, window, iters,
 def _extract_prep(img, centers, window):
     _check_window(window)
     dev = centers.device
-    if img.device != dev or img.dim() != 2:
-        raise ValueError("extract_patches needs a 2-D image on the device of the centers")
+    if img.device != dev or img.dim() != 2 or img.numel() == 0:
+        raise ValueError("extract_patches needs a non-empty 2-D image on the device "
+                         "of the centers")
     _check_points(centers)
-    pad = (window - 1) // 2 + 2
-    h, w = img.shape
-    return _pad(img, pad).contiguous(), h, w, pad, centers.to(F32).contiguous(), window
+    return _f32c(img), _f32c(centers), window
 
 
-def _extract_launch(imgp, h, w, pad, c, window):
+def _extract_launch(img, c, window):
     lib = build_kernels()
     k, dev = c.shape[0], c.device
+    h, w = img.shape
     outs = [torch.empty((k, window * window), dtype=F32, device=dev) for _ in range(3)]
     with torch.cuda.device(dev):
         rc = lib.lk_extract_launch(
-            imgp.data_ptr(), h, w, pad, c.data_ptr(), k, window,
+            img.data_ptr(), h, w, c.data_ptr(), k, window,
             outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
             cuda_build.stream(c))
     cuda_build.check(rc, "lk_extract_launch")

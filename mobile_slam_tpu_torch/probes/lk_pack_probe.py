@@ -2,8 +2,9 @@
 scripts/dev_lk_pack_probe.py).
 
 Times stripped single-level LK kernels with a FIXED iteration count (no
-early exit, so the variants are load-for-load comparable), one warp per
-point as in K1:
+early exit, so the variants are load-for-load comparable), on K1's body:
+one block of four warps per point, the template built once by the whole
+block, a step one fused sample-subtract-accumulate pass and one barrier:
 
   full    template + per-iteration window load + bilinear + reductions +
           2x2 solve
@@ -13,20 +14,22 @@ point as in K1:
   noarith load + bilinear, then a constant step
   empty   the loop body is scalar math only
 
-full - noload ~ the load, full - noarith ~ reductions + solve, empty ~ loop
-+ template.
+full - notmpl ~ the template, full - noload ~ the load, full - noarith ~
+reductions + solve, empty ~ loop + template.
 
 Each call returns the end positions (K, 2) and a witness (K,): the sum of
-the last window the point compared (the template in empty mode). Apart
-from full, the modes barely move the points (notmpl has det = 0, noload
-compares the template with itself, noarith and empty step by constants),
-so the witness is what shows that a mode loaded and resampled its windows.
+every window the point compared, over all steps (the template in empty
+mode). Apart from full, the modes barely move the points (notmpl has det =
+0, noload compares the template with itself, noarith and empty step by
+constants), so the witness is what shows that a mode loaded and resampled
+its windows; in the kernel it also keeps every step's window live.
 
     python -m mobile_slam_tpu_torch.probes.lk_pack_probe
 
-``lk_probe`` launches ``lk_probe_kernel<mode>`` (csrc/probe_kernels.cu)
-for CUDA tensors, or raises; CPU tensors take ``lk_probe_ref``. Images
-are replicate-padded by ``pad`` beforehand, as the reference's are.
+``lk_probe`` launches ``lk_probe_kernel<mode>`` (csrc/probe_kernels.cu,
+built for the reference's window, WIN, only) for CUDA tensors, or raises;
+CPU tensors take ``lk_probe_ref``, at any window. Images are
+replicate-padded by ``pad`` beforehand, as the reference's are.
 """
 
 from __future__ import annotations
@@ -86,7 +89,7 @@ def lk_probe_ref(pts: torch.Tensor, prev_p: torch.Tensor, next_p: torch.Tensor,
     det = gxx * gyy - gxy * gxy
     inv_det = torch.where(torch.abs(det) > 1e-12, 1.0 / det, torch.zeros_like(det))
     ix, iy = tx, ty
-    last = t
+    witness = torch.zeros_like(tx)
     for _ in range(iters):
         if mode == "empty":
             ix, iy = ix + 1e-4, iy + 1e-4
@@ -96,7 +99,7 @@ def lk_probe_ref(pts: torch.Tensor, prev_p: torch.Tensor, next_p: torch.Tensor,
                                    iy - torch.floor(iy), win)
         else:
             c = lk._sample(next_p, ix, iy, win, pad)
-        last = c
+        witness = witness + torch.sum(c, dim=(1, 2))
         if mode == "noarith":
             ix, iy = ix + c[:, 0, 0] * 1e-9, iy + 1e-4
             continue
@@ -105,7 +108,9 @@ def lk_probe_ref(pts: torch.Tensor, prev_p: torch.Tensor, next_p: torch.Tensor,
         b2 = torch.sum(diff * gy, dim=(1, 2))
         ix = ix + -(gyy * b1 - gxy * b2) * inv_det
         iy = iy + -(gxx * b2 - gxy * b1) * inv_det
-    return torch.stack([ix, iy], dim=-1), torch.sum(last, dim=(1, 2))
+    if mode == "empty":
+        witness = torch.sum(t, dim=(1, 2))
+    return torch.stack([ix, iy], dim=-1), witness
 
 
 @functools.cache
@@ -129,8 +134,8 @@ def _lk_probe_cuda(pts, prev_p, next_p, pad: int, mode: str, iters: int = ITERS,
                 or img.device != pts.device or not img.is_contiguous()):
             raise ValueError("images must be contiguous float32 2-D tensors of one "
                              "shape on the device of the points")
-    if not 3 <= window <= lk.MAX_WINDOW:
-        raise ValueError(f"LK window {window} outside [3, {lk.MAX_WINDOW}]")
+    if window != WIN:
+        raise ValueError(f"P2's kernel is built for window {WIN}, not {window}")
     lib = build_kernels()
     hp, wp = prev_p.shape
     out = torch.empty_like(pts)
@@ -208,6 +213,8 @@ def run(device="cuda", modes=MODES, reps: int = 20, passes: int = 3,
         return t / (k * iters) * 1e3
 
     attribution = {"total": per_iter(ms["full"])}
+    if "notmpl" in ms:
+        attribution["template (full-notmpl)"] = per_iter(ms["full"] - ms["notmpl"])
     if "noload" in ms:
         attribution["load (full-noload)"] = per_iter(ms["full"] - ms["noload"])
     if "noarith" in ms:

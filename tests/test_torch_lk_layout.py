@@ -1,4 +1,4 @@
-"""What the K1 / K2 kernels and their wrappers rest on, held on the CPU.
+"""What the K1-K3 kernels and their wrappers rest on, held on the CPU.
 
 * Borders: a gather that clamps each row and column into the unpadded image
   equals the gather from the replicate-padded copy, bit for bit.
@@ -6,8 +6,8 @@
   against the two-round form it takes, and the plain K2 run with it against
   the Pallas kernel in interpret mode.
 * The per-point step counts of the plain versions (the kernels' chains).
-* The wrappers' layout step: no copy of a contiguous float32 level, one
-  copy of anything else, no padding, and the errors it raises.
+* The wrappers' layout step: no copy of a contiguous float32 image or
+  level, one copy of anything else, no padding, and the errors it raises.
 """
 
 import numpy as np
@@ -198,7 +198,7 @@ def test_refine_steps_per_point(world):
 
 def _no_padding(monkeypatch):
     def boom(*a, **k):
-        raise AssertionError("the K1 / K2 wrappers must not pad or concatenate")
+        raise AssertionError("the kernel wrappers must not pad or concatenate")
     monkeypatch.setattr(lk, "_pad", boom)
     monkeypatch.setattr(lk.F, "pad", boom)
     monkeypatch.setattr(torch, "cat", boom)
@@ -256,6 +256,20 @@ def test_refine_prep_hands_over_the_image_without_a_copy(world, monkeypatch):
     assert torch.equal(got, strided)
 
 
+def test_extract_prep_hands_over_the_image_without_a_copy(world, monkeypatch):
+    _no_padding(monkeypatch)
+    pts, _ = _points()
+    img, t_pts = torch.from_numpy(world[1]), torch.from_numpy(pts)
+    out = lk._extract_prep(img, t_pts, WIN)
+    assert [a.data_ptr() for a in out[:2]] == [img.data_ptr(), t_pts.data_ptr()]
+    assert out[2] == WIN
+    strided = torch.from_numpy(np.ascontiguousarray(np.repeat(world[1], 2, axis=1)))[:, ::2]
+    got = lk._extract_prep(strided, t_pts.double(), WIN)
+    assert got[0].is_contiguous() and got[0].data_ptr() != strided.data_ptr()
+    assert torch.equal(got[0], strided)
+    assert got[1].dtype == torch.float32 and torch.equal(got[1], t_pts)
+
+
 def test_prep_raises_on_what_the_kernels_do_not_take(world, monkeypatch):
     pts, act = (torch.from_numpy(a) for a in _points())
     img = torch.from_numpy(world[0])
@@ -281,6 +295,16 @@ def test_prep_raises_on_what_the_kernels_do_not_take(world, monkeypatch):
         lk._refine_prep(img[None], *tmpl, pts, act, WIN, 8, 0.01, 2.0)
     with pytest.raises(ValueError, match="window"):
         lk._refine_prep(img, *tmpl, pts, act, 2, 8, 0.01, 2.0)
+    with pytest.raises(ValueError, match="2-D"):
+        lk._extract_prep(img[None], pts, WIN)
+    with pytest.raises(ValueError, match="2-D"):
+        lk._extract_prep(img[:0], pts, WIN)
+    for window in (2, 33):
+        with pytest.raises(ValueError, match="window"):
+            lk._extract_prep(img, pts, window)
+    for centers in (pts[:, :1], pts[:0], pts[None]):
+        with pytest.raises(ValueError, match="points"):
+            lk._extract_prep(img, centers, WIN)
     # Every window and depth the kernels take fits the card's shared memory;
     # one that would not is refused before the launch, with both sizes.
     assert lk.track_smem_bytes(WIN, 4) == 45872
@@ -291,8 +315,8 @@ def test_prep_raises_on_what_the_kernels_do_not_take(world, monkeypatch):
 
 
 def test_cuda_entry_points_raise_without_a_card_and_count_nothing(world):
-    """K1's and K2's CUDA entry points build first, so without a card they
-    raise; they never fall back to the plain version."""
+    """K1's, K2's and K3's CUDA entry points build first, so without a card
+    they raise; they never fall back to the plain version."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks the CPU-only case")
     pts, act = (torch.from_numpy(a) for a in _points())
@@ -303,6 +327,8 @@ def test_cuda_entry_points_raise_without_a_card_and_count_nothing(world):
     tmpl = [torch.zeros(len(pts), WIN * WIN) for _ in range(3)]
     with pytest.raises(RuntimeError, match="CUDA"):
         lk._refine_template_cuda(img, *tmpl, pts, act, WIN, 8, 0.01, 2.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lk._extract_patches_cuda(img, pts, WIN)
     assert lk.launch_counts == before
 
 
@@ -347,9 +373,40 @@ def test_ptxas_report_reads_registers_shared_memory_and_spills(tmp_path, monkeyp
         "ptxas info    : Compiling entry function '_Z18probe_touch_kernelPKfS0_Pf' for 'sm_90a'\n"
         "ptxas info    : Function properties for _Z18probe_touch_kernelPKfS0_Pf\n"
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
-        "ptxas info    : Used 32 registers, used 1 barriers\n")
+        "ptxas info    : Used 32 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_Z15lk_probe_kernelILi2ELi21EEvPKfS1_' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z15lk_probe_kernelILi2ELi21EEvPKfS1_\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 1 barriers, 6272 bytes smem\n")
     monkeypatch.setattr(cuda_build, "library_path", lambda name: tmp_path / "libx.so")
     assert cuda_build.ptxas_report("x") == [
         "lk_track_kernel<0>: 72 registers, 160 B static shared memory, spills 10 B stored / 16 B loaded",
-        "probe_touch_kernel: 32 registers, 0 B static shared memory, spills 0 B stored / 0 B loaded"]
+        "probe_touch_kernel: 32 registers, 0 B static shared memory, spills 0 B stored / 0 B loaded",
+        "lk_probe_kernel<2, 21>: 40 registers, 6272 B static shared memory, spills 0 B stored / 0 B loaded"]
     assert "-v" in cuda_build.NVCC_FLAGS
+
+
+def test_count_loop_loads_finds_the_loads_inside_backward_branches():
+    from mobile_slam_tpu_torch.ops import cuda_build
+
+    sass = (
+        "\n\tcode for sm_90a\n"
+        "\t\tFunction : _Z15lk_probe_kernelILi3EEvPKfS1_iiiS1_iPfS2_\n"
+        "\t.headerflags\t@\"EF_CUDA_SM90\"\n"
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;\n"
+        "        /*0010*/                   LDG.E R2, desc[UR4][R4.64] ;\n"
+        ".L_x_1:\n"
+        "        /*0020*/                   LDG.E.CONSTANT R5, desc[UR4][R6.64] ;\n"
+        "        /*0030*/                   FADD R7, R5, R7 ;\n"
+        "        /*0040*/              @P0 BRA `(.L_x_1) ;\n"
+        "        /*0050*/                   LDG.E R8, desc[UR4][R6.64] ;\n"
+        "        /*0060*/                   BRA `(.L_x_2) ;\n"
+        ".L_x_2:\n"
+        "        /*0070*/                   EXIT ;\n"
+        "\t\tFunction : _Z18probe_touch_kernelPKfS0_Pf\n"
+        "        /*0000*/                   LDG.E R2, desc[UR4][R4.64] ;\n"
+        "        /*0010*/                   LDG.E R3, desc[UR4][R4.64+0x4] ;\n"
+        "        /*0020*/              @P1 BRA 0x10 ;\n"
+        "        /*0030*/                   EXIT ;\n")
+    assert cuda_build.count_loop_loads(sass) == {"lk_probe_kernel<3>": (1, 3),
+                                                 "probe_touch_kernel": (1, 2)}

@@ -9,8 +9,8 @@ image, so the float32 sum is exact in any order, and points near 0, so
 after 8 iterations (float32 window sums taken in another order; the known
 (-3, +3) shift is recovered to 0.02 px), the other modes' displacement
 within 1e-6 px (their steps are constants or exactly 0, as measured), and
-every mode's witness, the sum of its last compared window, within 1e-5
-relative (float32 sums of 441 terms in another order).
+every mode's witness, the sum of every window it compared, within 1e-5
+relative (float32 sums of 8 x 441 terms in another order).
 """
 
 import numpy as np
@@ -82,7 +82,7 @@ def _np_probe_point(tx, ty, prev_p, next_p, pad, mode, iters, win):
     det = gxx * gyy - gxy * gxy
     inv_det = F32(1.0) / det if abs(det) > 1e-12 else F32(0.0)
     ix, iy = F32(tx), F32(ty)
-    last = t
+    witness = 0.0
     for _ in range(iters):
         if mode == "empty":
             ix, iy = F32(ix + F32(1e-4)), F32(iy + F32(1e-4))
@@ -94,7 +94,7 @@ def _np_probe_point(tx, ty, prev_p, next_p, pad, mode, iters, win):
             nbx = int(np.clip(int(np.floor(ix)) - half + pad, 0, wp - (win + 1)))
             nby = int(np.clip(int(np.floor(iy)) - half + pad, 0, hp - (win + 1)))
             c = _bilinear(next_p[nby:nby + win + 1, nbx:nbx + win + 1], fx, fy, win)
-        last = c
+        witness += np.sum(c, dtype=np.float64)
         if mode == "noarith":
             ix, iy = F32(ix + c[0, 0] * F32(1e-9)), F32(iy + F32(1e-4))
             continue
@@ -102,7 +102,9 @@ def _np_probe_point(tx, ty, prev_p, next_p, pad, mode, iters, win):
         b1, b2 = np.sum(diff * gx), np.sum(diff * gy)
         ix = F32(ix - (gyy * b1 - gxy * b2) * inv_det)
         iy = F32(iy - (gxx * b2 - gxy * b1) * inv_det)
-    return ix, iy, np.sum(last, dtype=np.float64)
+    if mode == "empty":
+        witness = np.sum(t, dtype=np.float64)
+    return ix, iy, witness
 
 
 @pytest.fixture(scope="module")
@@ -145,6 +147,8 @@ def test_probe_dispatch_on_cpu():
             p2.run(device="cpu")
     with pytest.raises(ValueError, match="mode"):
         p2.lk_probe(q, prev_p, next_p, p2.PAD, "bogus")
+    with pytest.raises(ValueError, match="window 21"):   # the kernel's only window
+        p2._lk_probe_cuda(q, prev_p, next_p, p2.PAD, "full", window=15)
     assert p1.launch_counts == b1 and p2.launch_counts == b2
 
 
