@@ -19,9 +19,10 @@ Phases, each printed as it runs:
    glue + launch) and the plain version timed with CUDA events around each
    call, the launch alone on prepared inputs from a CUDA graph replay
    (device time only); the least time the card could take (bound) from
-   this run's inputs and iteration counts (K3 and, in phase 5, P2 count
-   only the image pixels their blocks read; K1 and K2 still count every
-   level whole). K1 and K2 also: the steps of the
+   this run's inputs and iteration counts (each kernel counts only the
+   image pixels its blocks read: K1's templates and the windows its steps
+   sweep at every level, K2's step and end-point windows, K3's blocks,
+   and in phase 5 P2's). K1 and K2 also: the steps of the
    slowest point (their dependent chain), the device time of one step from
    two runs with the step count fixed, and the chain floor the two give.
    Every wrapper's prep is checked to hand over the caller's images
@@ -52,12 +53,29 @@ Phases, each printed as it runs:
    both pairs; P2 full's device time per step and its fixed part (slope of
    two step counts, as K1's in phase 2).
 
-Prints a JSON line of per-kernel results, the nvidia-smi line, and as the
-last line {"ok": true, "device": {...}}. Any failed check raises.
+6. file-driven entry point: writes a 10 s synthetic EuRoC-layout sequence
+   (io/synthetic.py, noise, seed 7, 201 frames) and runs
+   ``cli.main([configs/tum_vi_room1.yaml pointed at it, "--pipelined"])``
+   in process, from _chip_scratch/phase6/ (its logs/<ts>/ land there); checks
+   the run directory's files, that the engine ran on the card, K1/K2/K3 at
+   1/2/2 launches per frame, >= 100 finite poses, ATE Sim3 < 0.05 m and
+   finite map points; then a synchronous run, a run to a checkpoint at
+   frame 100 and a run resumed from it: the resumed run gives the
+   uninterrupted run's poses at the same timestamps, exactly (the card
+   runs this path deterministically), and the pipelined run's poses lie
+   within 1e-4 m of the synchronous run's (the bar of
+   tests/test_cross_path_parity.py); counts the host syncs of a few pipelined and
+   synchronous tracking frames; prints measure_device_step(50) on the
+   bench sequence's features.
+
+Prints a JSON line of per-kernel results ("launches": phase 6's pipelined
+run; phases 3 and 4's beside it), the nvidia-smi line, and as the last
+line {"ok": true, "device": {...}}. Any failed check raises.
 """
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -85,11 +103,18 @@ P2_WIT_RTOL = 1e-4  # P2 witness: float32 sums of 8 x 441 terms, full's
 RESID_TOL = 0.05    # K2 residual bar (0..255 scale)
 PATCH_TOL = 1e-3    # K3 patch bar
 ATE_TOL = 0.05      # m, Sim3-aligned
+PIPE_TOL = 1e-4     # m, pipelined against synchronous poses
 EXTRA_FRAMES = 45   # streaming tracking frames after initialization
 SYNC_FRAMES = 5     # streaming tracking frames whose host syncs are counted
 SERVE_SECONDS = 15.0  # the bench's image-path stretch: 300 frames at 20 fps
 CHUNK = 50          # bench.py CHUNK
 MIN_SERVE_POSES = 200
+CLI_SECONDS = 10.0  # phase 6's synthetic sequence: 201 frames at 20 fps
+MIN_CLI_POSES = 100
+CLI_CHECKPOINT_EVERY = 50
+CLI_CHECKPOINT_AT = 100  # frames of the run that writes the snapshot
+CLI_SYNC_AT = 20    # host syncs counted from the 20th tracking call
+CLI_DEVICE_STEPS = 50
 JAX_BAND = "0.010-0.014 m over 253 poses (BENCH_r05.json, TPU v5e)"
 NO_DEVICE = 42      # exit code without a CUDA device (tests/test_torch_cuda.py skips)
 # Published H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM3 bytes/s
@@ -164,6 +189,27 @@ def _origin(c, back, pad, n, side):
     side n padded by ``pad``, returned unpadded (may be negative)."""
     f = torch.floor(torch.nan_to_num(c, nan=0.0)).clamp(-2 ** 24, 2 ** 24).long()
     return (f - back + pad).clamp(0, n + 2 * pad - side) - pad
+
+
+def _k1_read_bytes(pyr0, pyr1, pts, windows, win):
+    """Bytes of the level pixels K1 must read, once each: the (win+3)^2
+    template block of every active slot at every level of the first
+    pyramid, and the (win+1)^2 windows its steps sample in the second
+    (``windows``: (level, x, y) of every step, from the plain version)."""
+    half = (win - 1) // 2
+    total = 0
+    for lvl, (a, b) in enumerate(zip(pyr0, pyr1)):
+        h, w = a.shape
+        tx, ty = pts[:, 0] / float(2 ** lvl), pts[:, 1] / float(2 ** lvl)
+        total += _footprint_bytes(a, _origin(ty, half + 1, half + 2, h, win + 3),
+                                  _origin(tx, half + 1, half + 2, w, win + 3), win + 3)
+        xs = [x for lv, x, _ in windows if lv == lvl]
+        ys = [y for lv, _, y in windows if lv == lvl]
+        if xs:
+            xs, ys = torch.cat(xs), torch.cat(ys)
+            total += _footprint_bytes(b, _origin(ys, half, half + 2, h, win + 1),
+                                      _origin(xs, half, half + 2, w, win + 1), win + 1)
+    return total
 
 
 def _footprint_bytes(img, oy, ox, side):
@@ -385,9 +431,10 @@ def phase_kernels(lk, pair, cfg):
 
     # K1
     pos_k, ok_k = lk._track_pyramidal_cuda(pyr0, pyr1, pts, active, params)
-    its, steps = [], []  # point-iterations per level, coarse first; steps per point
+    its, steps, k1_wins = [], [], []  # point-iterations per level, coarse first;
+    # steps per point; (level, x, y) of every step's windows
     pos_p, ok_p = lk.track_pyramidal_ref(pyr0, pyr1, pts, active, params,
-                                         iterations=its, steps=steps)
+                                         iterations=its, steps=steps, windows=k1_wins)
     torch.cuda.synchronize()
     _check(lk.build_kernels().lk_track_smem_bytes(win, len(pyr0))
            == lk.track_smem_bytes(win, len(pyr0)),
@@ -408,6 +455,7 @@ def phase_kernels(lk, pair, cfg):
     chain = int(steps[0].max())
     flops = (n_live * len(pyr0) * (_template_flops(win) + _sums_flops(win))
              + sum(its) * _track_iter_flops(win))
+    k1_read = _k1_read_bytes(pyr0, pyr1, pts[active], k1_wins, win)
     results["track_pyramidal"] = dict(
         max_abs_err=err1,
         ms=_time_ms(lambda: lk._track_pyramidal_cuda(pyr0, pyr1, pts, active, params)),
@@ -415,8 +463,9 @@ def phase_kernels(lk, pair, cfg):
         plain_ms=_time_ms(lambda: lk.track_pyramidal_ref(pyr0, pyr1, pts, active, params)),
         library_ms=None, iterations_per_level=its, chain_steps_max=chain,
         chain_steps_sum=int(steps[0].sum()), step_ms=k1_step, fixed_ms=k1_fixed,
-        chain_floor_ms=chain * k1_step,
-        **_bound(_nbytes(*pyr0, *pyr1, pts, active, pos_k, ok_k), flops))
+        chain_floor_ms=chain * k1_step, image_bytes_read=k1_read,
+        image_bytes_whole=_nbytes(*pyr0, *pyr1),
+        **_bound(k1_read + _nbytes(pts, active, pos_k, ok_k), flops))
 
     # K3 at the tracked points of the new frame (the FB template)
     new_pts = pos_k
@@ -450,8 +499,9 @@ def phase_kernels(lk, pair, cfg):
     for name, (img, tmpl, start, iters, max_shift) in settings.items():
         args = (img, *tmpl, start, ok_k, win, iters, tcfg.lk_eps, max_shift)
         pk, okk, rk = lk._refine_template_cuda(*args)
-        n_its, steps2 = [], []
-        pp, okp, rp = lk.refine_template_ref(*args, iterations=n_its, steps=steps2)
+        n_its, steps2, k2_wins = [], [], []
+        pp, okp, rp = lk.refine_template_ref(*args, iterations=n_its, steps=steps2,
+                                             windows=k2_wins)
         n_it, chain2 = n_its[0], int(steps2[0].max())
         torch.cuda.synchronize()
         _check(bool((okk == okp).all()), f"K2 ({name}) ok masks differ")
@@ -467,13 +517,20 @@ def phase_kernels(lk, pair, cfg):
             *prepped[:7], n, 0.0, prepped[9]))
         n_act = int(ok_k.sum())
         flops = n_act * _refine_fixed_flops(win) + n_it * _refine_iter_flops(win)
+        # Bytes: the image pixels the step and end-point windows cover (their
+        # union), the active slots' templates, the start points, the outputs.
+        xs, ys = (torch.cat([w[i] for w in k2_wins]) for i in (0, 1))
+        k2_read = _footprint_bytes(img, _origin(ys, half, half + 2, img.shape[0], win + 1),
+                                   _origin(xs, half, half + 2, img.shape[1], win + 1), win + 1)
         times[name] = dict(
             ms=_time_ms(lambda: lk._refine_template_cuda(*args)),
             launch_ms=_time_graph_ms(lambda: lk._refine_launch(*prepped)),
             plain_ms=_time_ms(lambda: lk.refine_template_ref(*args)),
             iterations=n_it, chain_steps_max=chain2, step_ms=k2_step,
-            fixed_ms=k2_fixed, chain_floor_ms=chain2 * k2_step,
-            **_bound(_nbytes(img, *tmpl, start, ok_k, pk, okk, rk), flops))
+            fixed_ms=k2_fixed, chain_floor_ms=chain2 * k2_step, image_bytes_read=k2_read,
+            image_bytes_whole=_nbytes(img),
+            **_bound(k2_read + 3 * n_act * win * win * 4 + _nbytes(start, ok_k, pk, okk, rk),
+                     flops))
         print(f"[phase 2] K2 {name}: iters {iters} max_shift {max_shift} "
               f"ok {int(m.sum())} pos diff {dpos:.3g} px resid diff {dres:.3g} "
               f"wrapper {times[name]['ms']:.4f} ms launch (graph) "
@@ -774,6 +831,187 @@ def phase_probes(lk, pair):
     return results
 
 
+class _PhaseSixRecorder:
+    """While active, every VIOEngine that VIOSystem builds is one that
+    records each pose by its timestamp, the host wall time of each
+    tracking call, and the host syncs of SYNC_FRAMES tracking calls from
+    the CLI_SYNC_AT-th on (pipelined ones in a pipelined run)."""
+
+    def __init__(self, vio_system, base):
+        self.engines, self._mod, self._base = [], vio_system, base
+        recorder = self
+
+        class RecordingEngine(base):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                self.poses, self.call_ms, self.syncs, self.n_tracking = {}, [], [], 0
+                recorder.engines.append(self)
+
+            def _keep(self, res, ts):
+                if res.ok and res.pose is not None:
+                    self.poses[res.ts if res.ts is not None else ts] = res.pose
+                return res
+
+            def process_frame(self, image, frame_ts, imu_override=None):
+                from mobile_slam_tpu_torch.probes.sync_sites import SyncSites
+
+                tracking = self.status.name == "TRACKING"
+                self.n_tracking += tracking
+                counted = tracking and CLI_SYNC_AT <= self.n_tracking < CLI_SYNC_AT + SYNC_FRAMES
+                t0 = time.perf_counter()
+                if counted:
+                    with SyncSites() as sc:
+                        res = super().process_frame(image, frame_ts, imu_override)
+                    self.syncs.append(sum(sc.sites.values()))
+                else:
+                    res = super().process_frame(image, frame_ts, imu_override)
+                    if tracking:
+                        self.call_ms.append(1e3 * (time.perf_counter() - t0))
+                return self._keep(res, frame_ts)
+
+            def flush_all(self):
+                return [self._keep(r, None) for r in super().flush_all()]
+
+        self.cls = RecordingEngine
+
+    def __enter__(self):
+        self._mod.VIOEngine = self.cls
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.VIOEngine = self._base
+
+
+def _run_cli(cli, recorder, cwd, argv):
+    """cli.main(argv) from ``cwd``; (its engine, its run directory)."""
+    os.makedirs(cwd, exist_ok=True)
+    here = os.getcwd()
+    os.chdir(cwd)
+    try:
+        with recorder:
+            rc = cli.main(argv)
+    finally:
+        os.chdir(here)
+    _check(rc == 0, f"cli.main({argv}) returned {rc}")
+    (run,) = os.listdir(os.path.join(cwd, "logs"))
+    return recorder.engines[-1], os.path.join(cwd, "logs", run)
+
+
+def _max_dp(a: dict, b: dict, keys) -> float:
+    return max(float(np.linalg.norm(a[t][:3, 3] - b[t][:3, 3])) for t in keys)
+
+
+def phase_cli(lk, data, sync_streaming):
+    """Phase 6: the file-driven entry point, in process."""
+    from mobile_slam_tpu_torch import cli
+    from mobile_slam_tpu_torch.engine import checkpoint as ckpt
+    from mobile_slam_tpu_torch.engine import example, vio_engine, vio_system
+    from mobile_slam_tpu_torch.io import native_loader, synthetic
+
+    t_phase = time.perf_counter()
+    work = os.path.join(REPO, "_chip_scratch", "phase6")     # logs/<ts>/ land here
+    seq = os.path.join(REPO, "_chip_scratch", "phase6_seq")
+    for d in (work, seq):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    _check(synthetic.main(["--out", seq, "--duration", str(CLI_SECONDS), "--noise",
+                           "--seed", "7"]) == 0, "the sequence writer failed")
+    cfg_path = os.path.join(work, "tum_vi_room1.yaml")
+    os.makedirs(work)
+    with open(os.path.join(REPO, "configs", "tum_vi_room1.yaml")) as f:
+        lines = [f"dataset_path: {seq}" if ln.startswith("dataset_path:") else ln
+                 for ln in f.read().splitlines()]
+    with open(cfg_path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    n_seq = len(os.listdir(os.path.join(seq, "mav0", "cam0", "data")))
+    print(f"[phase 6] wrote {n_seq} frames ({CLI_SECONDS} s, noise, seed 7) in "
+          f"{time.perf_counter() - t0:.2f} s; images read by "
+          f"{'native/loader.cpp' if native_loader.available() else 'io/png.py'}", flush=True)
+    recorder = _PhaseSixRecorder(vio_system, vio_engine.VIOEngine)
+
+    # 1. The pipelined run: the slice's main path, launches counted from 0.
+    lk.reset_launch_counts()
+    pipe, run_dir = _run_cli(cli, recorder, os.path.join(work, "pipelined"),
+                             [cfg_path, "--pipelined"])
+    counts = dict(lk.launch_counts)
+    for name in ("config.yaml", "trajectory_pose.txt", "evaluation.txt", "evaluation.json",
+                 "live.json"):
+        _check(os.path.exists(os.path.join(run_dir, name)), f"{name} missing in {run_dir}")
+    _check(pipe.device.type == "cuda", f"the CLI's engine ran on {pipe.device}")
+    with open(os.path.join(run_dir, "evaluation.json")) as f:
+        ev = json.load(f)
+    frames = ev["frames"]
+    _check(frames == n_seq, f"{frames} frames processed of {n_seq}")
+    for k, n in LK_PER_FRAME.items():
+        _check(counts[k] == n * frames, f"{k}: {counts[k]} launches over {frames} frames")
+    p = np.asarray([v[:3, 3] for v in pipe.poses.values()])
+    _check(len(p) >= MIN_CLI_POSES and len(p) == ev["poses"],
+           f"{len(p)} poses (evaluation: {ev['poses']})")
+    _check(bool(np.isfinite(p).all()), "non-finite poses")
+    map_pts = pipe.get_map_points()
+    timing = pipe.get_timing()
+    ms = float(np.median(pipe.call_ms))
+    print(f"[phase 6] pipelined: {frames} frames, {ev['poses']} poses, fps {ev['fps']:.3f}, "
+          f"ATE {ev['ate_rmse_m']:.4f} m, RPE(1 s) {ev['rpe_trans_rmse_m']:.4f} m, median "
+          f"{ms:.2f} ms per tracking call (p90 {np.percentile(pipe.call_ms, 90):.2f}), "
+          f"stage EMAs {timing} ms, host syncs per pipelined tracking frame {pipe.syncs} "
+          f"(synchronous streaming, phase 3: {sync_streaming:.1f}), map points "
+          f"{len(map_pts)}, launches {counts}", flush=True)
+    _check(len(map_pts) > 0 and bool(np.isfinite(map_pts).all()),
+           f"{len(map_pts)} map points, finite: {bool(np.isfinite(map_pts).all())}")
+
+    # 2. Synchronous runs: uninterrupted; to a checkpoint; resumed from it.
+    sync, _ = _run_cli(cli, recorder, os.path.join(work, "sync"), [cfg_path])
+    snap = os.path.join(work, "snapshot.npz")
+    part, _ = _run_cli(cli, recorder, os.path.join(work, "to_checkpoint"),
+                       [cfg_path, f"--frames={CLI_CHECKPOINT_AT}", f"--checkpoint={snap}",
+                        f"--checkpoint-every={CLI_CHECKPOINT_EVERY}"])
+    _check(os.path.exists(snap), "no checkpoint written")
+    resumed, _ = _run_cli(cli, recorder, os.path.join(work, "resumed"),
+                          [cfg_path, f"--resume={snap}"])
+    host = json.loads(bytes(ckpt.load_extra(snap)["host_json"]).decode())
+    t_ck = host["last_frame_ts"]
+    _check(t_ck == max(part.poses), "the snapshot is not of the run's last frame")
+    after = sorted(t for t in sync.poses if t > t_ck)
+    _check(sorted(resumed.poses) == after,
+           f"resumed poses at {len(resumed.poses)} timestamps, uninterrupted at {len(after)} "
+           "after the checkpoint")
+    d_resume = _max_dp(resumed.poses, sync.poses, after)
+    _check(d_resume == 0.0, f"resumed poses differ by {d_resume} m")
+    common = sorted(set(pipe.poses) & set(sync.poses))
+    d_pipe = _max_dp(pipe.poses, sync.poses, common)
+    _check(d_pipe < PIPE_TOL, f"pipelined poses differ from synchronous by {d_pipe} m")
+    ate_ok = ev["ate_rmse_m"] < ATE_TOL
+
+    # 3. The device step on the bench sequence's features.
+    eng = vio_engine.VIOEngine(example.bench_config())
+    imu_i, at = 0, None
+    for fi, ts in enumerate(data.cam_ts):
+        imu_i = _feed_imu(eng, data, imu_i, ts)
+        f = data.frames[fi]
+        res = eng.process_features(ts, f["ids"], f["rays"], uv=f["uv"], vel=f["vel"])
+        at = fi if at is None and res.status == vio_engine.Status.TRACKING else at
+        if at is not None and fi >= at + 3:
+            break
+    step_ms = eng.measure_device_step(CLI_DEVICE_STEPS)
+    _check(step_ms is not None and step_ms > 0, f"measure_device_step gave {step_ms}")
+    out = dict(counts=counts, frames=frames, poses=ev["poses"], fps=ev["fps"],
+               ate=ev["ate_rmse_m"], rpe=ev["rpe_trans_rmse_m"], ms_per_tracking_call=ms,
+               stage_ms=timing, syncs_per_pipelined_frame=float(np.mean(pipe.syncs)),
+               syncs_per_sync_frame=float(np.mean(sync.syncs)), map_points=len(map_pts),
+               resume_max_dp=d_resume, resume_poses=len(after), pipelined_max_dp=d_pipe,
+               pipelined_common=len(common), device_step_ms=step_ms,
+               seconds=time.perf_counter() - t_phase)
+    print(f"[phase 6] synchronous: {len(sync.poses)} poses, host syncs per tracking frame "
+          f"{sync.syncs}; checkpoint at {t_ck:.3f} s, resumed {len(after)} poses, largest "
+          f"position difference to the uninterrupted run {d_resume:.3e} m; pipelined against "
+          f"synchronous over {len(common)} poses {d_pipe:.3e} m (bar {PIPE_TOL} m); "
+          f"measure_device_step({CLI_DEVICE_STEPS}) {step_ms:.3f} ms on the bench features "
+          f"(TRACKING at frame {at}); phase 6 took {out['seconds']:.1f} s", flush=True)
+    _check(ate_ok, f"ATE {ev['ate_rmse_m']} m over {ev['poses']} poses (bar {ATE_TOL} m)")
+    return out
+
+
 def main() -> int:
     smi_line = phase_device()
     from mobile_slam_tpu_torch.engine import example
@@ -819,14 +1057,19 @@ def main() -> int:
     stream = phase_streaming(lk, data, cam, cfg, sim, example)
     serve = phase_serving(lk, cfg, sim, example, make_camera)
     kernels.update(phase_probes(lk, pair))
+    cli_run = phase_cli(lk, data, stream["syncs_per_frame"])
     for k in LK_PER_FRAME:
-        kernels[k].update(launches=serve["counts"][k],
+        kernels[k].update(launches=cli_run["counts"][k], launches_serving=serve["counts"][k],
                           launches_streaming=stream["counts"][k])
     print(f"[summary] streaming {stream['ms_per_frame']:.2f} ms per tracking frame, "
           f"{stream['syncs_per_frame']:.1f} host syncs per frame; chunked "
           f"{serve['ms_per_chunked_frame']:.2f} ms per frame, "
           f"{serve['syncs_per_chunked_frame']:.1f} host syncs per frame; serving "
-          f"ATE {serve['ate']:.4f} m over {serve['n_poses']} poses", flush=True)
+          f"ATE {serve['ate']:.4f} m over {serve['n_poses']} poses; CLI (pipelined) "
+          f"{cli_run['frames']} frames, {cli_run['poses']} poses, fps {cli_run['fps']:.3f}, "
+          f"ATE {cli_run['ate']:.4f} m, {cli_run['syncs_per_pipelined_frame']:.1f} host syncs "
+          f"per pipelined frame, measure_device_step {cli_run['device_step_ms']:.3f} ms",
+          flush=True)
     _check("jax" not in sys.modules, "jax was imported")
     _check(not any(m == "mobile_slam_tpu" or m.startswith("mobile_slam_tpu.")
                    for m in sys.modules), "the JAX package was imported")

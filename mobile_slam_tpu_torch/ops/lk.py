@@ -166,13 +166,16 @@ def _inside(x, y, h: int, w: int):
 def track_pyramidal_ref(prev_pyr, next_pyr, pts: torch.Tensor,
                         active: torch.Tensor, params: LKParams,
                         iterations: list | None = None,
-                        steps: list | None = None):
+                        steps: list | None = None,
+                        windows: list | None = None):
     """Plain version of K1. Returns (pos (K, 2) float32, ok (K,) bool).
     Given a list as ``iterations``, appends to it the point-iterations run
     at each level, coarse first (the work K1 does on these inputs). Given a
     list as ``steps``, appends one (K,) int64 tensor: the Gauss-Newton steps
     each point ran over all levels (its chain; 0 for an inactive slot, at
-    most ``iters`` per level)."""
+    most ``iters`` per level). Given a list as ``windows``, appends
+    (level, x, y) for every step: the level and the positions at which the
+    points still moving sample their window in ``next_pyr``."""
     win = params.window
     half = (win - 1) // 2
     pad = half + 2
@@ -202,6 +205,8 @@ def track_pyramidal_ref(prev_pyr, next_pyr, pts: torch.Tensor,
                 break
             if count:
                 n_steps = n_steps + ~conv
+            if windows is not None:
+                windows.append((lvl, cx[~conv], cy[~conv]))
             diff = _sample(next_p, cx, cy, win, pad) - t
             b1 = torch.sum(diff * gx, dim=(1, 2))
             b2 = torch.sum(diff * gy, dim=(1, 2))
@@ -256,12 +261,16 @@ def refine_template_ref(img: torch.Tensor, t_patch: torch.Tensor,
                         active: torch.Tensor, window: int, iters: int,
                         eps: float, max_shift: float,
                         iterations: list | None = None,
-                        steps: list | None = None, one_round: bool = False):
+                        steps: list | None = None, one_round: bool = False,
+                        windows: list | None = None):
     """Plain version of K2. Returns (pos (K, 2), ok (K,), resid (K,)),
     float32. Given a list as ``iterations``, appends to it the
     point-iterations run (the work K2 does on these inputs); given a list
     as ``steps``, appends one (K,) int64 tensor of the steps each point ran
-    (0 for an inactive slot, at most ``iters``). ``one_round`` takes the
+    (0 for an inactive slot, at most ``iters``). Given a list as
+    ``windows``, appends (x, y) for every step, the positions at which the
+    points still moving sample their window, and last the end positions of
+    the active points (their residual's window). ``one_round`` takes the
     step's right-hand side from ``refine_rhs_one_round`` instead of from the
     two zero-mean patches."""
     k = pos0.shape[0]
@@ -290,6 +299,8 @@ def refine_template_ref(img: torch.Tensor, t_patch: torch.Tensor,
             break
         if count:
             n_steps = n_steps + ~conv
+        if windows is not None:
+            windows.append((cx[~conv], cy[~conv]))
         b1, b2 = rhs(_sample(imgp, cx, cy, win, pad), t3, gx3, gy3)
         dx = -(gyy * b1 - gxy * b2) * inv_det
         dy = -(gxx * b2 - gxy * b1) * inv_det
@@ -306,6 +317,8 @@ def refine_template_ref(img: torch.Tensor, t_patch: torch.Tensor,
         iterations.append(int(n_steps.sum()))
     if steps is not None:
         steps.append(n_steps)
+    if windows is not None:
+        windows.append((cx[act], cy[act]))
     c = _sample(imgp, cx, cy, win, pad)
     c_zm = c - (torch.sum(c, dim=(1, 2)) / win2)[:, None, None]
     resid = torch.sum(torch.abs(c_zm - t_zm), dim=(1, 2)) / win2

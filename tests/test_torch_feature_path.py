@@ -5,10 +5,11 @@
    slots), through initialization into TRACKING and EXTRA tracking frames.
    Bars: the same status, ok, keyframe flag and feature count on every
    frame; the window-tip body state within 1e-5 (m, unit quaternion, m/s)
-   on every TRACKING frame. The reference engine packs its TRACKING-frame
-   input into float32 (mobile_slam_tpu/engine/vio_engine.py:504-523) and
-   the port keeps float64, so they agree to float32 input rounding, not
-   to the bit.
+   on every TRACKING frame. Both engines pack their TRACKING-frame input
+   into one float32 vector (mobile_slam_tpu/engine/vio_engine.py:504-523;
+   tests/test_torch_pipelined.py holds the two vectors equal), so the
+   inputs agree to the bit; the states agree to the bar, not to the bit
+   (the two estimators sum in other orders).
 2. The feature-path ``make_chunked_step`` from the reference engine's warm
    state (converted) over the next T frames, the same stacked inputs on
    both sides: poses within 1e-5 (the bar of tests/test_torch_slice.py),

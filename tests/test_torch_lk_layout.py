@@ -194,6 +194,44 @@ def test_refine_steps_per_point(world):
     assert int(capped[0][:6].max()) == 5 and int(capped[0][-1]) == 0
 
 
+@pytest.mark.parametrize("levels", [1, 3])
+def test_track_windows_follow_the_steps(world, levels):
+    """``windows`` records one position per step of each moving point, at
+    the level it steps on, and changes nothing."""
+    img0, img1 = world
+    pts, act = _points()
+    p0 = im.build_pyramid(torch.from_numpy(img0), levels - 1)
+    p1 = im.build_pyramid(torch.from_numpy(img1), levels - 1)
+    prm = lk.LKParams(window=WIN, levels=levels - 1, iters=6, eps=0.005)
+    its, wins = [], []
+    out = lk.track_pyramidal_ref(p0, p1, torch.from_numpy(pts), torch.from_numpy(act),
+                                 prm, iterations=its, windows=wins)
+    plain = lk.track_pyramidal_ref(p0, p1, torch.from_numpy(pts), torch.from_numpy(act), prm)
+    assert all(torch.equal(a, b) for a, b in zip(out, plain))
+    for lvl, n in zip(range(levels - 1, -1, -1), its):
+        at = [(x, y) for lv, x, y in wins if lv == lvl]
+        assert sum(x.numel() for x, _ in at) == n
+        assert all(x.shape == y.shape for x, y in at)
+    # The first step of the finest level starts where the coarser levels ended.
+    x0 = [x for lv, x, _ in wins if lv == 0][0]
+    assert x0.numel() >= 6 and bool(torch.isfinite(x0).all())
+
+
+def test_refine_windows_follow_the_steps(world):
+    img0, img1 = world
+    pts, act = _points()
+    tmpl = lk.extract_patches_ref(torch.from_numpy(img0), torch.from_numpy(pts), WIN)
+    start = torch.from_numpy(pts + np.array([0.9, -0.6], np.float32))
+    args = (torch.from_numpy(img1), *tmpl, start, torch.from_numpy(act), WIN, 8, 0.005, 2.0)
+    its, wins = [], []
+    pos, _, _ = lk.refine_template_ref(*args, iterations=its, windows=wins)
+    *steps, (xe, ye) = wins
+    assert sum(x.numel() for x, _ in steps) == its[0]
+    assert torch.equal(steps[0][0], start[:, 0][torch.from_numpy(act)])
+    a = torch.from_numpy(act)
+    assert torch.equal(xe, pos[a, 0]) and torch.equal(ye, pos[a, 1])   # the residual's window
+
+
 # --- (d) the wrappers' layout step ----------------------------------------
 
 def _no_padding(monkeypatch):
