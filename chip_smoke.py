@@ -16,7 +16,8 @@ Phases, each printed as it runs:
    card, at the shapes of the main path (two consecutive 512x512 bench
    frames, their 4-level pyramids, 160 slots from the corner detector, a few
    inactive), held to the parity bars of the CPU tests; the wrapper (layout
-   glue + launch) and the plain version timed with CUDA events around each
+   glue + launch; also through its torch.library custom op, the path the
+   tracker takes) and the plain version timed with CUDA events around each
    call, the launch alone on prepared inputs from a CUDA graph replay
    (device time only); the least time the card could take (bound) from
    this run's inputs and iteration counts (each kernel counts only the
@@ -53,8 +54,8 @@ Phases, each printed as it runs:
    both pairs; P2 full's device time per step and its fixed part (slope of
    two step counts, as K1's in phase 2).
 
-6. file-driven entry point: writes a 10 s synthetic EuRoC-layout sequence
-   (io/synthetic.py, noise, seed 7, 201 frames) and runs
+6. file-driven entry point: writes a 7 s synthetic EuRoC-layout sequence
+   (io/synthetic.py, noise, seed 7, 141 frames) and runs
    ``cli.main([configs/tum_vi_room1.yaml pointed at it, "--pipelined"])``
    in process, from _chip_scratch/phase6/ (its logs/<ts>/ land there); checks
    the run directory's files, that the engine ran on the card, K1/K2/K3 at
@@ -68,9 +69,30 @@ Phases, each printed as it runs:
    synchronous tracking frames; prints measure_device_step(50) on the
    bench sequence's features.
 
+7. the fleet (parallel/batch.py): K1, K2 and K3 at B = 4 (phase 2's bench
+   pair and three more pairs of the bench sequence), one batched launch
+   against 4 single launches on the same inputs (bit-equal), against the
+   vmap rule's one launch (bit-equal) and against the plain versions
+   (phase 2's bars), timed and bounded as in phase 2; then the image fleet
+   at B = 4 on the bench configuration: four stretches of the bench's
+   300-frame sequence from frames 0, 20, 40, 60, each with its own RANSAC
+   seed, streamed to chunked mode by its own ChunkedImageServer, their
+   carries stacked and run through make_batched_image_step for 2 chunks of
+   50 frames: every pose finite, each sequence's ATE Sim3 < 0.05 m, its
+   first 3 fleet frames within 1e-4 m of its own single-stream chunk run
+   with the same keyframe flags, K1/K2/K3 at 1/2/2 launches per fleet
+   frame whatever B is; fleet fps, ms per fleet frame, host syncs per fleet
+   frame, beside phase 4's chunked fps. Then the feature fleet at B = 8:
+   the bench's feature-path state after initialization, each sequence fed
+   the feature chunks with its own seeded pixel noise through
+   make_batched_chunked_step, held against its own make_chunked_step run
+   over the first chunk (first 3 frames within 1e-4 m with the same
+   keyframe flags, every frame finite and within 0.05 m).
+
 Prints a JSON line of per-kernel results ("launches": phase 6's pipelined
-run; phases 3 and 4's beside it), the nvidia-smi line, and as the last
-line {"ok": true, "device": {...}}. Any failed check raises.
+run; phases 3, 4 and 7's beside it, "batched_*" the B = 4 launch of phase
+7), the nvidia-smi line, and as the last line {"ok": true, "device":
+{...}}. Any failed check raises.
 """
 
 import json
@@ -109,7 +131,8 @@ SYNC_FRAMES = 5     # streaming tracking frames whose host syncs are counted
 SERVE_SECONDS = 15.0  # the bench's image-path stretch: 300 frames at 20 fps
 CHUNK = 50          # bench.py CHUNK
 MIN_SERVE_POSES = 200
-CLI_SECONDS = 10.0  # phase 6's synthetic sequence: 201 frames at 20 fps
+CLI_SECONDS = 7.0   # phase 6's synthetic sequence: 141 frames at 20 fps (10 s
+                    # until phase 7 came: cut to keep the whole run near 700 s)
 MIN_CLI_POSES = 100
 CLI_CHECKPOINT_EVERY = 50
 CLI_CHECKPOINT_AT = 100  # frames of the run that writes the snapshot
@@ -117,6 +140,17 @@ CLI_SYNC_AT = 20    # host syncs counted from the 20th tracking call
 CLI_DEVICE_STEPS = 50
 JAX_BAND = "0.010-0.014 m over 253 poses (BENCH_r05.json, TPU v5e)"
 NO_DEVICE = 42      # exit code without a CUDA device (tests/test_torch_cuda.py skips)
+FLEET_B = 4         # the image fleet (bench.py FLEET_B)
+FEATURE_FLEET_B = 8  # the feature fleet (bench.py Bf)
+FLEET_PAIRS = ((40, 41), (60, 61), (80, 81))  # bench frame pairs beside phase 2's
+FLEET_STARTS = (0, 20, 40, 60)  # image fleet: each sequence's first frame
+FLEET_SEED = 100    # sequence s: RANSAC generator / pixel-noise seed 100 + s
+FLEET_CHUNKS = 2    # fleet chunks of CHUNK frames
+FLEET_CHECK_FRAMES = 3  # fleet frames held to FLEET_POS_TOL of the single run
+FLEET_POS_TOL = 1e-4    # m; later frames only to the ATE bar (the bench ATE is
+                        # chaotic in the tracked positions, PERF.md)
+FLEET_CHUNK_TOL = 0.05  # m, feature fleet against its single run over a chunk
+FLEET_PIXEL_NOISE = 0.25  # px, feature fleet (the bench's pixel noise)
 # Published H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM3 bytes/s
 # and float32 outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -270,7 +304,7 @@ def phase_device() -> str:
     return smi[0]
 
 
-def bench_pair(data, cam, cfg, sim, example):
+def bench_pair(data, cam, cfg, sim, example, frames=(20, 21)):
     """Two consecutive bench frames on the card, as the tracker sees them:
     (img0, pyr0, img1, pyr1, pts, valid), the 160 slots from the corner
     detector on the first."""
@@ -280,7 +314,7 @@ def bench_pair(data, cam, cfg, sim, example):
     tcfg = cfg.tracker
     frames = [torch.as_tensor(sim.render_frame(data, fi, cam, example.R_IC,
                                                cfg.camera.t_ic_vec),
-                              dtype=torch.float32, device="cuda") for fi in (20, 21)]
+                              dtype=torch.float32, device="cuda") for fi in frames]
     img0, pyr0, resp0 = trk.preprocess_frame(frames[0], tcfg)
     img1, pyr1, _ = trk.preprocess_frame(frames[1], tcfg)
     pts, valid = corners.detect_grid(resp0, tcfg.min_dist, tcfg.max_points,
@@ -459,6 +493,7 @@ def phase_kernels(lk, pair, cfg):
     results["track_pyramidal"] = dict(
         max_abs_err=err1,
         ms=_time_ms(lambda: lk._track_pyramidal_cuda(pyr0, pyr1, pts, active, params)),
+        op_ms=_time_ms(lambda: lk.track_pyramidal(pyr0, pyr1, pts, active, params)),
         launch_ms=_time_graph_ms(lambda: lk._track_launch(*k1_args)),
         plain_ms=_time_ms(lambda: lk.track_pyramidal_ref(pyr0, pyr1, pts, active, params)),
         library_ms=None, iterations_per_level=its, chain_steps_max=chain,
@@ -484,6 +519,7 @@ def phase_kernels(lk, pair, cfg):
     results["extract_patches"] = dict(
         max_abs_err=err3,
         ms=_time_ms(lambda: lk._extract_patches_cuda(img1, new_pts, win)),
+        op_ms=_time_ms(lambda: lk.extract_patches(img1, new_pts, win)),
         launch_ms=_time_graph_ms(lambda: lk._extract_launch(*k3_args)),
         plain_ms=_time_ms(lambda: lk.extract_patches_ref(img1, new_pts, win)),
         library_ms=None, image_bytes_read=k3_read,
@@ -524,6 +560,7 @@ def phase_kernels(lk, pair, cfg):
                                    _origin(xs, half, half + 2, img.shape[1], win + 1), win + 1)
         times[name] = dict(
             ms=_time_ms(lambda: lk._refine_template_cuda(*args)),
+            op_ms=_time_ms(lambda: lk.refine_template(*args)),
             launch_ms=_time_graph_ms(lambda: lk._refine_launch(*prepped)),
             plain_ms=_time_ms(lambda: lk.refine_template_ref(*args)),
             iterations=n_it, chain_steps_max=chain2, step_ms=k2_step,
@@ -533,7 +570,8 @@ def phase_kernels(lk, pair, cfg):
                      flops))
         print(f"[phase 2] K2 {name}: iters {iters} max_shift {max_shift} "
               f"ok {int(m.sum())} pos diff {dpos:.3g} px resid diff {dres:.3g} "
-              f"wrapper {times[name]['ms']:.4f} ms launch (graph) "
+              f"wrapper {times[name]['ms']:.4f} ms (custom op {times[name]['op_ms']:.4f} ms) "
+              f"launch (graph) "
               f"{times[name]['launch_ms']:.4f} ms plain {times[name]['plain_ms']:.4f} ms "
               f"bound {times[name]['bound_ms']:.5f} ms ({times[name]['bound_by']}, "
               f"{n_it} point-iterations, slowest point {chain2} steps); one step "
@@ -545,7 +583,8 @@ def phase_kernels(lk, pair, cfg):
     for name in ("track_pyramidal", "extract_patches"):
         r = results[name]
         print(f"[phase 2] {name}: max err {r['max_abs_err']:.3g} wrapper "
-              f"{r['ms']:.4f} ms launch (graph) {r['launch_ms']:.4f} ms plain "
+              f"{r['ms']:.4f} ms (through its custom op {r['op_ms']:.4f} ms) launch "
+              f"(graph) {r['launch_ms']:.4f} ms plain "
               f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.5f} ms ({r['bound_by']})",
               flush=True)
     r = results["track_pyramidal"]
@@ -1012,6 +1051,501 @@ def phase_cli(lk, data, sync_streaming):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the fleet (parallel/batch.py)
+# ---------------------------------------------------------------------------
+
+def _fleet_pairs(data, cam, cfg, sim, example, pair):
+    """FLEET_B bench frame pairs on the card: phase 2's and the pairs at
+    FLEET_PAIRS; each (img0, pyr0, img1, pyr1, pts, active), active the
+    detector's valid slots less every 16th (as phase 2)."""
+    pairs = [pair] + [bench_pair(data, cam, cfg, sim, example, frames=fr)
+                      for fr in FLEET_PAIRS]
+    out = []
+    for img0, pyr0, img1, pyr1, pts, valid in pairs:
+        active = valid.clone()
+        active[::16] = False
+        out.append((img0, pyr0, img1, pyr1, pts, active))
+    return out
+
+
+def _stacked(pairs, i):
+    """Field i of every pair stacked on a leading fleet axis (a pyramid
+    level by level)."""
+    first = pairs[0][i]
+    if isinstance(first, (tuple, list)):
+        return [torch.stack([p[i][l] for p in pairs]) for l in range(len(first))]
+    return torch.stack([p[i] for p in pairs])
+
+
+def _all_same(batched, singles) -> bool:
+    """Every output of a batched launch bit-equal (NaN equal to NaN) to the
+    single launches', sequence by sequence."""
+    return all(_same(x[b], y) for b, single in enumerate(singles)
+               for x, y in zip(batched, single))
+
+
+def phase_fleet_kernels(lk, pairs, cfg):
+    """K1, K2, K3 at B = FLEET_B: one batched launch against B single
+    launches on the same inputs (bit-equal), the batched outputs against
+    the plain versions at phase 2's bars, the launch through the vmap rule
+    (one launch, the same bits), and the batched launch timed as phase 2
+    times single ones, with its bound from the pixels its blocks read."""
+    tcfg = cfg.tracker
+    win = tcfg.lk_window_size
+    half = (win - 1) // 2
+    params = lk.LKParams(window=win, levels=tcfg.lk_pyramid_levels,
+                         iters=tcfg.lk_iterations, eps=tcfg.lk_eps)
+    n = len(pairs)
+    img0, pyr0, img1, pyr1, pts, act = (_stacked(pairs, i) for i in range(6))
+    results = {}
+
+    def through_vmap(fn, *args):
+        before = dict(lk.launch_counts)
+        out = torch.func.vmap(fn)(*args)
+        counts = {k: lk.launch_counts[k] - before[k] for k in before}
+        return out, counts
+
+    # K1
+    k1_prep = lk._track_prep_batched(pyr0, pyr1, pts, act, params)
+    _check(all(a.data_ptr() == b.data_ptr() for a, b in zip(k1_prep[0] + k1_prep[1],
+                                                             pyr0 + pyr1)),
+           "K1's batched prep copied a level")
+    pos_b, ok_b = lk._track_launch(*k1_prep)
+    singles = [lk._track_pyramidal_cuda(p[1], p[3], p[4], p[5], params) for p in pairs]
+    (pos_v, ok_v), counts = through_vmap(
+        lambda a, b, c, d: lk.track_pyramidal(a, b, c, d, params), pyr0, pyr1, pts, act)
+    torch.cuda.synchronize()
+    _check(_all_same((pos_b, ok_b), singles), "K1: the batched launch differs from "
+           "the single launches")
+    _check(_same(pos_v, pos_b) and _same(ok_v, ok_b), "K1: the vmap rule's launch "
+           "differs from the batched launch")
+    _check(counts["track_pyramidal"] == 1, f"K1 under vmap launched {counts}")
+    err1, flops1, read1, chain1 = 0.0, 0, 0, 0
+    for b, (_, p0, _, p1, q, a) in enumerate(pairs):
+        its, wins, steps = [], [], []
+        pos_p, ok_p = lk.track_pyramidal_ref(p0, p1, q, a, params, iterations=its,
+                                             windows=wins, steps=steps)
+        chain1 = max(chain1, int(steps[0].max()))
+        _check(bool((ok_b[b] == ok_p).all()), f"K1 sequence {b}: ok masks differ "
+               "from the plain version")
+        both = ok_b[b] & ok_p
+        err1 = max(err1, float((pos_b[b] - pos_p)[both].norm(dim=-1).max()))
+        n_live = int(a.sum())
+        flops1 += (n_live * len(p0) * (_template_flops(win) + _sums_flops(win))
+                   + sum(its) * _track_iter_flops(win))
+        read1 += _k1_read_bytes(p0, p1, q[a], wins, win)
+    _check(err1 < POS_TOL, f"K1 batched: position difference {err1} px")
+    results["track_pyramidal"] = dict(
+        batched_err=err1, batched_chain_steps_max=chain1,
+        batched_ms=_time_ms(lambda: torch.func.vmap(
+            lambda a, b, c, d: lk.track_pyramidal(a, b, c, d, params))(pyr0, pyr1, pts, act)),
+        batched_launch_ms=_time_graph_ms(lambda: lk._track_launch(*k1_prep)),
+        **{f"batched_{k}": v for k, v in
+           _bound(read1 + _nbytes(pts, act, pos_b, ok_b), flops1).items()})
+
+    # K3 at the tracked points of the new frames (the FB templates).
+    k3_prep = lk._extract_prep_batched(img1, pos_b, win)
+    _check(k3_prep[0].data_ptr() == img1.data_ptr(), "K3's batched prep copied the images")
+    t_b = lk._extract_launch(*k3_prep)
+    singles = [lk._extract_patches_cuda(p[2], pos_b[b], win) for b, p in enumerate(pairs)]
+    t_v, counts = through_vmap(lambda i, c: lk.extract_patches(i, c, win), img1, pos_b)
+    torch.cuda.synchronize()
+    _check(_all_same(t_b, singles), "K3: the batched launch differs from the single launches")
+    _check(all(_same(x, y) for x, y in zip(t_v, t_b)), "K3: the vmap rule's launch differs")
+    _check(counts["extract_patches"] == 1, f"K3 under vmap launched {counts}")
+    err3, read3 = 0.0, 0
+    for b, p in enumerate(pairs):
+        t_p = lk.extract_patches_ref(p[2], pos_b[b], win)
+        err3 = max(err3, max(float((x[b] - y).abs().max()) for x, y in zip(t_b, t_p)))
+        h1, w1 = p[2].shape
+        read3 += _footprint_bytes(
+            p[2], _origin(pos_b[b][:, 1], half + 1, half + 2, h1, win + 3),
+            _origin(pos_b[b][:, 0], half + 1, half + 2, w1, win + 3), win + 3)
+    _check(err3 < PATCH_TOL, f"K3 batched: patch difference {err3}")
+    results["extract_patches"] = dict(
+        batched_err=err3,
+        batched_ms=_time_ms(lambda: torch.func.vmap(
+            lambda i, c: lk.extract_patches(i, c, win))(img1, pos_b)),
+        batched_launch_ms=_time_graph_ms(lambda: lk._extract_launch(*k3_prep)),
+        **{f"batched_{k}": v for k, v in _bound(
+            read3 + _nbytes(pos_b, *t_b), n * pos_b.shape[1] * _template_flops(win)).items()})
+
+    # K2 at both tracker settings, as phase 2.
+    anchor = [torch.stack(x) for x in zip(*[lk.extract_patches_ref(p[0], p[4], win)
+                                            for p in pairs])]
+    settings = {
+        "fb": (pyr0[0], t_b, pts, tcfg.lk_iterations, 2.0 + tcfg.fb_max_err),
+        "anchor": (img1, anchor, pos_b, tcfg.anchor_iters, tcfg.anchor_max_shift),
+    }
+    err2, times = 0.0, {}
+    for name, (img, tmpl, start, iters, max_shift) in settings.items():
+        args = (img, *tmpl, start, ok_b, win, iters, tcfg.lk_eps, max_shift)
+        prep = lk._refine_prep_batched(*args)
+        _check(prep[0].data_ptr() == img.data_ptr(), "K2's batched prep copied the images")
+        out_b = lk._refine_launch(*prep)
+        singles = [lk._refine_template_cuda(img[b], *(t[b] for t in tmpl), start[b], ok_b[b],
+                                            win, iters, tcfg.lk_eps, max_shift)
+                   for b in range(n)]
+        out_v, counts = through_vmap(
+            lambda i, t, gx, gy, s, a: lk.refine_template(i, t, gx, gy, s, a, win, iters,
+                                                          tcfg.lk_eps, max_shift),
+            img, *tmpl, start, ok_b)
+        torch.cuda.synchronize()
+        _check(_all_same(out_b, singles), f"K2 ({name}): the batched launch differs "
+               "from the single launches")
+        _check(all(_same(x, y) for x, y in zip(out_v, out_b)),
+               f"K2 ({name}): the vmap rule's launch differs")
+        _check(counts["refine_template"] == 1, f"K2 ({name}) under vmap launched {counts}")
+        flops, read, chain = 0, 0, 0
+        for b in range(n):
+            n_its, wins, steps = [], [], []
+            pp, okp, rp = lk.refine_template_ref(img[b], *(t[b] for t in tmpl), start[b],
+                                                 ok_b[b], win, iters, tcfg.lk_eps,
+                                                 max_shift, iterations=n_its, windows=wins,
+                                                 steps=steps)
+            chain = max(chain, int(steps[0].max()))
+            _check(bool((out_b[1][b] == okp).all()), f"K2 ({name}) sequence {b}: ok masks "
+                   "differ from the plain version")
+            m = out_b[1][b] & okp
+            err2 = max(err2, float((out_b[0][b] - pp)[m].norm(dim=-1).max()),
+                       float((out_b[2][b] - rp)[m].abs().max()))
+            n_act = int(ok_b[b].sum())
+            flops += n_act * _refine_fixed_flops(win) + n_its[0] * _refine_iter_flops(win)
+            xs, ys = (torch.cat([w[i] for w in wins]) for i in (0, 1))
+            read += (_footprint_bytes(img[b], _origin(ys, half, half + 2, img.shape[1], win + 1),
+                                      _origin(xs, half, half + 2, img.shape[2], win + 1), win + 1)
+                     + 3 * n_act * win * win * 4)
+        _check(err2 < POS_TOL, f"K2 ({name}) batched: difference {err2}")
+        times[name] = dict(
+            batched_chain_steps_max=chain,
+            batched_ms=_time_ms(lambda: torch.func.vmap(
+                lambda i, t, gx, gy, s, a: lk.refine_template(
+                    i, t, gx, gy, s, a, win, iters, tcfg.lk_eps, max_shift))(
+                        img, *tmpl, start, ok_b)),
+            batched_launch_ms=_time_graph_ms(lambda: lk._refine_launch(*prep)),
+            **{f"batched_{k}": v for k, v in
+               _bound(read + _nbytes(start, ok_b, *out_b), flops).items()})
+    results["refine_template"] = dict(batched_err=err2, **times["fb"],
+                                      **{f"{k}_anchor": v for k, v in times["anchor"].items()})
+    for name, r in results.items():
+        print(f"[phase 7] {name} at B={n}: batched launch bit-equal to {n} single "
+              f"launches and to the vmap rule's one launch; vs plain {r['batched_err']:.3g}; "
+              f"wrapper (vmap) {r['batched_ms']:.4f} ms, launch (graph) "
+              f"{r['batched_launch_ms']:.4f} ms, bound {r['batched_bound_ms']:.5f} ms "
+              f"({r['batched_bound_by']})" + (
+                  f", slowest point of the fleet {r['batched_chain_steps_max']} steps"
+                  if "batched_chain_steps_max" in r else ""), flush=True)
+    r = results["refine_template"]
+    print(f"[phase 7] refine_template anchor at B={n}: wrapper (vmap) "
+          f"{r['batched_ms_anchor']:.4f} ms, launch (graph) "
+          f"{r['batched_launch_ms_anchor']:.4f} ms, bound "
+          f"{r['batched_bound_ms_anchor']:.5f} ms, slowest point of the fleet "
+          f"{r['batched_chain_steps_max_anchor']} steps", flush=True)
+    for r in results.values():
+        r["batched_B"] = n
+    return results
+
+
+def _to64(tree):
+    """A tree with every floating tensor in float64 (phase 7's parity runs);
+    other leaves as they are."""
+    if isinstance(tree, torch.Tensor):
+        return tree.double() if tree.is_floating_point() else tree
+    if isinstance(tree, tuple):
+        fields = [_to64(x) for x in tree]
+        return type(tree)(*fields) if hasattr(tree, "_fields") else tuple(fields)
+    return tree
+
+
+def _clone_gen(g: torch.Generator) -> torch.Generator:
+    c = torch.Generator(device=g.device)
+    c.set_state(g.get_state())
+    return c
+
+
+def phase_image_fleet(lk, cfg, sim, example, make_camera, serve):
+    """FLEET_B sequences of the bench's image-path stretch, each from its
+    own start frame and with its own RANSAC seed, streamed to chunked mode
+    by its own ChunkedImageServer; their carries stacked and run through
+    make_batched_image_step for FLEET_CHUNKS chunks of CHUNK frames."""
+    from mobile_slam_tpu_torch.engine import chunked
+    from mobile_slam_tpu_torch.engine.serving import ChunkedImageServer
+    from mobile_slam_tpu_torch.eval.evaluator import compute_ate
+    from mobile_slam_tpu_torch.parallel import batch
+    from mobile_slam_tpu_torch.probes.sync_sites import SyncSites
+
+    t_phase = time.perf_counter()
+    cam = make_camera(cfg.camera, dtype=torch.float64, device="cpu")
+    data = sim.simulate(example.bench_sim_config(SERVE_SECONDS), cam,
+                        cfg.camera.r_ic_mat, cfg.camera.t_ic_vec)
+    frames = {}
+
+    def frame(fi):
+        if fi not in frames:
+            frames[fi] = sim.render_frame(data, fi, cam, example.R_IC, cfg.camera.t_ic_vec)
+        return frames[fi]
+
+    n_fleet = FLEET_CHUNKS * CHUNK
+    seqs = []
+    for s, start in enumerate(FLEET_STARTS):
+        server = ChunkedImageServer(cfg, chunk_size=CHUNK, stable_frames=4)
+        server.engine._gen.manual_seed(FLEET_SEED + s)
+        imu_i = 0 if start == 0 else int(np.searchsorted(data.imu_ts, data.cam_ts[start - 1],
+                                                         side="right"))
+        fi, stream_ts, stream_p = start, [], []
+        while server.mode != "chunked":
+            _check(fi < start + 60, f"fleet sequence {s} never entered chunked mode")
+            imu_i = _feed_imu(server, data, imu_i, data.cam_ts[fi])
+            for r in server.process_frame(frame(fi), data.cam_ts[fi]):
+                stream_ts.append(r.ts)
+                stream_p.append(r.p)
+            fi += 1
+        _check(fi + n_fleet <= len(data.frames), f"fleet sequence {s} runs past the data")
+        inputs, ts = [], []
+        for k in range(fi, fi + n_fleet):
+            imu_i = _feed_imu(server, data, imu_i, data.cam_ts[k])
+            inputs.append(server._frame_input(frame(k), data.cam_ts[k]))
+            ts.append(data.cam_ts[k])
+        seqs.append(dict(server=server, carry=server._carry, inputs=inputs, ts=ts,
+                         stream_ts=stream_ts, stream_p=stream_p, entry=fi))
+    print(f"[phase 7] image fleet: {FLEET_B} sequences from frames {FLEET_STARTS}, "
+          f"chunked from frames {[q['entry'] for q in seqs]}, "
+          f"{sum(len(q['stream_p']) for q in seqs)} streamed poses", flush=True)
+
+    eng = seqs[0]["server"].engine
+    dev, iters, n_it = eng.device, cfg.tracker.ransac_iters, cfg.estimator.num_iterations
+    focal, check = cfg.camera.focal_length, FLEET_CHECK_FRAMES
+
+    # Parity, float64: the fleet's first frames against each sequence's own
+    # single-stream chunk from the same carry and frames, the same draws.
+    args64 = (_to64(eng.params), n_it, cfg.tracker,
+              make_camera(cfg.camera, dtype=torch.float64, device=dev), focal)
+    # The first frames' rows of the (CHUNK, iters, 8) draws the fleet's own
+    # generators will give its first chunk.
+    draws = [torch.randint(0, 1 << 30, (CHUNK, iters, 8), generator=_clone_gen(q["carry"].gen),
+                           device=dev)[:check] for q in seqs]
+    first = [[_to64(x) for x in q["inputs"][:check]] for q in seqs]
+    single64 = chunked.make_chunked_image_step(*args64)
+    ref64 = [single64(_to64(q["carry"]), chunked.stack_image_inputs(f, dev), ransac_draws=d)[1]
+             for q, f, d in zip(seqs, first, draws)]
+    inputs64 = chunked.ImageFrameInput(*[torch.stack(x, dim=1) for x in zip(
+        *[chunked.stack_image_inputs(f, dev) for f in first])])
+    _, out64 = batch.make_batched_image_step(*args64)(
+        batch.batch_states([_to64(q["carry"]) for q in seqs]), inputs64,
+        ransac_draws=torch.stack(draws, dim=1))
+    diffs64 = []
+    for s, r in enumerate(ref64):
+        diffs64.append(float((out64[0][:, s] - r[0]).norm(dim=-1).max()))
+        _check(diffs64[-1] < FLEET_POS_TOL, f"image fleet sequence {s} (float64): first "
+               f"{check} frames {diffs64[-1]} m from its single-stream run")
+        _check(bool(torch.equal(out64[3][:, s], r[3])), f"image fleet sequence {s} "
+               "(float64): keyframe flags differ from its single-stream run")
+
+    # The same first frames in float32 single-stream, to set beside the
+    # float32 fleet's: printed, not held to FLEET_POS_TOL (batched and
+    # single float32 products round differently and the solver amplifies
+    # that, PERF.md).
+    single_p, single_kf = [], []
+    for q, d in zip(seqs, draws):
+        one = q["server"]._step(q["carry"], chunked.stack_image_inputs(q["inputs"][:check], dev),
+                                ransac_draws=d)[1]
+        single_p.append(one[0].cpu().numpy())
+        single_kf.append(one[3].cpu().numpy())
+
+    step = batch.make_batched_image_step(eng.params, n_it, cfg.tracker, eng.camera, focal)
+    carry = batch.batch_states([q["carry"] for q in seqs])
+    outs, walls, syncs = [], [], None
+    lk.reset_launch_counts()
+    for c in range(FLEET_CHUNKS):
+        per_seq = [chunked.stack_image_inputs(q["inputs"][c * CHUNK:(c + 1) * CHUNK], dev)
+                   for q in seqs]
+        inputs = chunked.ImageFrameInput(*[torch.stack(x, dim=1) for x in zip(*per_seq)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if c == FLEET_CHUNKS - 1:
+            with SyncSites() as sc:
+                carry, out = step(carry, inputs)
+            syncs = sum(sc.sites.values())
+        else:
+            carry, out = step(carry, inputs)
+        out = tuple(x.cpu().numpy() for x in out)
+        walls.append(time.perf_counter() - t0)
+        outs.append(out)
+    counts = dict(lk.launch_counts)
+    p = np.concatenate([o[0] for o in outs])      # (T, B, 3)
+    ok = np.concatenate([o[2] for o in outs])
+    kf = np.concatenate([o[3] for o in outs])
+    _check(bool(np.isfinite(p).all()), "image fleet: non-finite poses")
+    for k, per in LK_PER_FRAME.items():
+        _check(counts[k] == per * n_fleet, f"image fleet: {k} launched {counts[k]} times "
+               f"over {n_fleet} fleet frames of {FLEET_B} sequences")
+    diffs, same_kf, ates = [], [], []
+    for s, q in enumerate(seqs):
+        diffs.append(float(np.linalg.norm(p[:check, s] - single_p[s], axis=-1).max()))
+        same_kf.append(bool((kf[:check, s] == single_kf[s]).all()))
+        est_ts = q["stream_ts"] + [t for t, o in zip(q["ts"], ok[:, s]) if o]
+        est_p = q["stream_p"] + [x for x, o in zip(p[:, s], ok[:, s]) if o]
+        ate = compute_ate(np.asarray(est_ts), np.asarray(est_p), data.cam_ts, data.gt_p)
+        ates.append(float(ate.rmse))
+        _check(ate.rmse < ATE_TOL, f"image fleet sequence {s}: ATE {ate.rmse} m")
+    _check(len({tuple(np.round(p[0, s], 6)) for s in range(FLEET_B)}) == FLEET_B,
+           "image fleet: two sequences gave the same first pose")
+    fps = FLEET_B * CHUNK / walls[0]
+    out = dict(counts=counts, fps=fps, fps_per_seq=fps / FLEET_B,
+               ms_per_fleet_frame=1e3 * walls[0] / CHUNK, chunk_walls_s=walls,
+               syncs_per_fleet_frame=syncs / CHUNK, ates=ates, first_frames_diff_f64=diffs64,
+               first_frames_diff_f32=diffs, first_frames_same_kf_f32=same_kf,
+               ok_frames=int(ok.sum()), seconds=time.perf_counter() - t_phase)
+    print(f"[phase 7] image fleet B={FLEET_B}: {FLEET_CHUNKS} chunks of {CHUNK}, "
+          f"{out['ok_frames']} of {FLEET_B * n_fleet} poses ok; fleet fps {fps:.3f} "
+          f"({out['fps_per_seq']:.3f} per sequence), {out['ms_per_fleet_frame']:.2f} ms per "
+          f"fleet frame (chunk walls {[round(w, 3) for w in walls]} s); host syncs per "
+          f"fleet frame {out['syncs_per_fleet_frame']:.2f}; phase 4 chunked fps "
+          f"{serve['chunked_fps']:.3f} ({serve['ms_per_chunked_frame']:.2f} ms per frame); "
+          f"ATE per sequence {[round(a, 4) for a in ates]} m; first {check} frames "
+          f"vs each sequence's single run: float64 {diffs64} m (same keyframe flags), "
+          f"float32 {diffs} m (same keyframe flags {same_kf}); launches {counts} over "
+          f"{n_fleet} fleet frames; phase 7 image fleet took {out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
+def _feature_inputs(cfg, data, sim, fi0, n, t0, noise_seed, device):
+    """FrameInputs of frames fi0 .. fi0 + n - 1 on the card (as
+    tests/test_torch_chunked.py builds them), the observations moved by
+    seeded pixel noise (FLEET_PIXEL_NOISE px, through the focal length)."""
+    from mobile_slam_tpu_torch.engine.estimator import FrameInput
+
+    rng = np.random.default_rng(noise_seed)
+    k_pad, m_pad = cfg.tracker.max_points, cfg.estimator.max_imu_per_interval
+    f32 = dict(dtype=torch.float32, device=device)
+
+    def pad(a, n_p, sh):
+        out = np.zeros((n_p,) + sh)
+        out[:min(len(a), n_p)] = a[:n_p]
+        return torch.as_tensor(out, **f32)
+
+    out = []
+    for fi in range(fi0, fi0 + n):
+        f = data.frames[fi]
+        m = len(f["ids"])
+        px = rng.normal(0.0, FLEET_PIXEL_NOISE, (m, 2))
+        rays = np.array(f["rays"], dtype=np.float64)
+        rays[:, :2] += px / cfg.camera.focal_length
+        uv = np.asarray(f["uv"]) + px
+        dt, acc, gyr = sim.imu_between(data, data.cam_ts[fi - 1], data.cam_ts[fi])
+        ids = np.full(k_pad, -1, np.int32)
+        ids[:m] = f["ids"][:k_pad]
+        out.append(FrameInput(
+            ts=torch.tensor(data.cam_ts[fi] - t0, **f32),
+            ids=torch.as_tensor(ids, device=device),
+            obs=pad(rays, k_pad, (3,)), uv=pad(uv, k_pad, (2,)), vel=pad(f["vel"], k_pad, (2,)),
+            valid=torch.as_tensor(np.arange(k_pad) < m, device=device),
+            imu_dt=pad(dt, m_pad, ()), imu_acc=pad(acc, m_pad, (3,)),
+            imu_gyr=pad(gyr, m_pad, (3,)),
+            imu_cnt=torch.tensor(min(len(dt), m_pad), dtype=torch.int32, device=device)))
+    return out
+
+
+def phase_feature_fleet(cfg, data, sim, serve):
+    """FEATURE_FLEET_B copies of the bench's feature-path state after
+    initialization, each fed the bench's feature chunks with its own seeded
+    pixel noise, through make_batched_chunked_step; each sequence held
+    against its own make_chunked_step run over the first chunk."""
+    from mobile_slam_tpu_torch.engine import chunked
+    from mobile_slam_tpu_torch.engine.vio_engine import Status, VIOEngine
+    from mobile_slam_tpu_torch.parallel import batch
+
+    t_phase = time.perf_counter()
+    engine = VIOEngine(cfg)
+    imu_i, fi0 = 0, None
+    for fi in range(len(data.frames)):
+        imu_i = _feed_imu(engine, data, imu_i, data.cam_ts[fi])
+        f = data.frames[fi]
+        res = engine.process_features(data.cam_ts[fi], f["ids"], f["rays"], uv=f["uv"],
+                                      vel=f["vel"])
+        if res.status == Status.TRACKING and fi0 is None:
+            fi0 = fi + 4            # TRACKING + 3 frames, as the bench
+        if fi0 is not None and fi + 1 == fi0:
+            break
+    _check(fi0 is not None, "feature fleet: the engine never reached TRACKING")
+    n = FLEET_CHUNKS * CHUNK
+    _check(fi0 + n <= len(data.frames), "feature fleet: the chunks run past the data")
+    seq_inputs = [_feature_inputs(cfg, data, sim, fi0, n, engine._t0, FLEET_SEED + s,
+                                  engine.device) for s in range(FEATURE_FLEET_B)]
+    n_it, check = cfg.estimator.num_iterations, FLEET_CHECK_FRAMES
+
+    def fleet_inputs(seqs, lo, hi):
+        rows = [chunked.stack_frame_inputs(seq[lo:hi]) for seq in seqs]
+        return type(rows[0])(*[torch.stack(x, dim=1) for x in zip(*rows)])
+
+    # Parity, float64: the fleet's first frames against each sequence's own
+    # make_chunked_step from the same state.
+    p64, state64 = _to64(engine.params), _to64(engine.state)
+    first64 = [[_to64(x) for x in seq[:check]] for seq in seq_inputs]
+    single64 = chunked.make_chunked_step(p64, n_it)
+    ref64 = [single64(state64, chunked.stack_frame_inputs(f))[1] for f in first64]
+    _, out64 = batch.make_batched_chunked_step(p64, n_it)(
+        batch.batch_states([state64] * FEATURE_FLEET_B), fleet_inputs(first64, 0, check))
+    diffs64 = []
+    for s, r in enumerate(ref64):
+        diffs64.append(float((out64[0][:, s] - r[0]).norm(dim=-1).max()))
+        _check(diffs64[-1] < FLEET_POS_TOL, f"feature fleet sequence {s} (float64): first "
+               f"{check} frames {diffs64[-1]} m from its single run")
+        _check(bool(torch.equal(out64[3][:, s], r[3])), f"feature fleet sequence {s} "
+               "(float64): keyframe flags differ from its single run")
+
+    single = chunked.make_chunked_step(engine.params, n_it)
+    single_out, t_single = [], 0.0
+    for s in range(FEATURE_FLEET_B):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, out = single(engine.state, chunked.stack_frame_inputs(seq_inputs[s][:CHUNK]))
+        out = tuple(x.cpu().numpy() for x in out)
+        t_single += time.perf_counter() - t0
+        single_out.append(out)
+
+    step = batch.make_batched_chunked_step(engine.params, n_it)
+    state = batch.batch_states([engine.state] * FEATURE_FLEET_B)
+    outs, walls = [], []
+    for c in range(FLEET_CHUNKS):
+        inputs = fleet_inputs(seq_inputs, c * CHUNK, (c + 1) * CHUNK)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, out = step(state, inputs)
+        outs.append(tuple(x.cpu().numpy() for x in out))
+        walls.append(time.perf_counter() - t0)
+    p = np.concatenate([o[0] for o in outs])
+    kf = np.concatenate([o[3] for o in outs])
+    _check(bool(np.isfinite(p).all()), "feature fleet: non-finite poses")
+    diffs, first, same_kf = [], [], []
+    for s, (p_s, _, ok_s, kf_s) in enumerate(single_out):
+        d = np.linalg.norm(p[:CHUNK, s] - p_s, axis=-1)
+        diffs.append(float(d.max()))
+        first.append(float(d[:check].max()))
+        same_kf.append(bool((kf[:check, s] == kf_s[:check]).all()))
+        _check(bool(np.isfinite(p_s).all()) and diffs[-1] < FLEET_CHUNK_TOL,
+               f"feature fleet sequence {s}: {diffs[-1]} m from its single run over the chunk")
+    _check(len({tuple(np.round(p[-1, s], 6)) for s in range(FEATURE_FLEET_B)})
+           == FEATURE_FLEET_B, "feature fleet: two sequences ended at the same pose")
+    fps = FEATURE_FLEET_B * CHUNK / walls[0]
+    single_fps = FEATURE_FLEET_B * CHUNK / t_single
+    out = dict(fps=fps, fps_per_seq=fps / FEATURE_FLEET_B, chunk_walls_s=walls,
+               single_chunked_fps=single_fps, max_diff=max(diffs),
+               first_frames_diff_f64=max(diffs64), first_frames_diff_f32=max(first),
+               first_frames_same_kf_f32=same_kf, seconds=time.perf_counter() - t_phase)
+    print(f"[phase 7] feature fleet B={FEATURE_FLEET_B} from frame {fi0}: fleet fps "
+          f"{fps:.3f} ({out['fps_per_seq']:.3f} per sequence; chunk walls "
+          f"{[round(w, 3) for w in walls]} s); single-stream make_chunked_step "
+          f"{single_fps:.3f} fps; phase 4 chunked (image path) fps {serve['chunked_fps']:.3f}; "
+          f"first {check} frames vs each sequence's single run: float64 {max(diffs64):.3g} m "
+          f"(same keyframe flags), float32 {max(first):.3g} m (same keyframe flags "
+          f"{same_kf}); largest float32 difference over the chunk {max(diffs):.3g} m; "
+          f"phase 7 feature fleet took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     smi_line = phase_device()
     from mobile_slam_tpu_torch.engine import example
@@ -1058,9 +1592,13 @@ def main() -> int:
     serve = phase_serving(lk, cfg, sim, example, make_camera)
     kernels.update(phase_probes(lk, pair))
     cli_run = phase_cli(lk, data, stream["syncs_per_frame"])
+    fleet_k = phase_fleet_kernels(lk, _fleet_pairs(data, cam, cfg, sim, example, pair), cfg)
+    fleet = phase_image_fleet(lk, cfg, sim, example, make_camera, serve)
+    ffleet = phase_feature_fleet(cfg, data, sim, serve)
     for k in LK_PER_FRAME:
         kernels[k].update(launches=cli_run["counts"][k], launches_serving=serve["counts"][k],
-                          launches_streaming=stream["counts"][k])
+                          launches_streaming=stream["counts"][k],
+                          launches_fleet=fleet["counts"][k], **fleet_k[k])
     print(f"[summary] streaming {stream['ms_per_frame']:.2f} ms per tracking frame, "
           f"{stream['syncs_per_frame']:.1f} host syncs per frame; chunked "
           f"{serve['ms_per_chunked_frame']:.2f} ms per frame, "
@@ -1068,7 +1606,12 @@ def main() -> int:
           f"ATE {serve['ate']:.4f} m over {serve['n_poses']} poses; CLI (pipelined) "
           f"{cli_run['frames']} frames, {cli_run['poses']} poses, fps {cli_run['fps']:.3f}, "
           f"ATE {cli_run['ate']:.4f} m, {cli_run['syncs_per_pipelined_frame']:.1f} host syncs "
-          f"per pipelined frame, measure_device_step {cli_run['device_step_ms']:.3f} ms",
+          f"per pipelined frame, measure_device_step {cli_run['device_step_ms']:.3f} ms; "
+          f"image fleet B={FLEET_B} {fleet['fps']:.3f} fps ({fleet['fps_per_seq']:.3f} per "
+          f"sequence, {fleet['ms_per_fleet_frame']:.2f} ms per fleet frame, "
+          f"{fleet['syncs_per_fleet_frame']:.2f} host syncs per fleet frame) against "
+          f"chunked {serve['chunked_fps']:.3f} fps; feature fleet B={FEATURE_FLEET_B} "
+          f"{ffleet['fps']:.3f} fps against single-stream {ffleet['single_chunked_fps']:.3f}",
           flush=True)
     _check("jax" not in sys.modules, "jax was imported")
     _check(not any(m == "mobile_slam_tpu" or m.startswith("mobile_slam_tpu.")

@@ -23,6 +23,8 @@
 struct LevelMeta {
   const float* prev[LK_MAX_LEVELS];  // contiguous (h, w) float32 levels
   const float* next[LK_MAX_LEVELS];
+  long long bs_prev[LK_MAX_LEVELS];  // floats from one sequence's level to
+  long long bs_next[LK_MAX_LEVELS];  // the next one's (0: shared by all)
   int h[LK_MAX_LEVELS];
   int w[LK_MAX_LEVELS];
   int n;

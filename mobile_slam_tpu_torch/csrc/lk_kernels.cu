@@ -53,8 +53,15 @@
 // 2.8 MB) nor operations, but the dependent chain of the slowest point:
 // its steps over all levels x (loads + shuffles + one barrier + the 2x2
 // solve), after one template build. 160 blocks of 4 warps on 132 SMs leave
-// the card mostly idle; filling it (a batch of streams in the grid) is for
-// a caller that has one.
+// the card mostly idle; a fleet of B sequences fills it in one launch.
+//
+// Batch axis (the fleet, mobile_slam_tpu_torch/parallel/batch.py): every
+// kernel runs a grid of (K, B) blocks, blockIdx.y the sequence. The point
+// arrays (points, active, templates, outputs) are (B, K, ...) contiguous,
+// slot b * K + k; each image or level is one contiguous (h, w) plane per
+// sequence, the planes a batch stride apart (0 when all sequences share
+// one). The block body does not depend on B: B = 1 with stride 0 is the
+// single-stream launch, bit for bit.
 //
 // Design of K3, the same block form with no loop: all LK_THREADS threads
 // load the (win+3)^2 template block (576 pixels at window 21, ~4.5 per
@@ -100,7 +107,8 @@ lk_track_kernel(LevelMeta lv, const float* __restrict__ pts,
   __shared__ float red[2][LK_NWARP * 2];
   __shared__ float sums[LK_MAX_LEVELS][3];
 
-  const int k = blockIdx.x;
+  const long long k = (long long)blockIdx.y * gridDim.x + blockIdx.x;  // slot
+  const long long seq = blockIdx.y;                                     // sequence
   const int tid = threadIdx.x, lane = tid & (LK_WARP - 1), warp = tid / LK_WARP;
   const float px = pts[2 * k], py = pts[2 * k + 1];
   if (!active[k]) {  // uniform across the block, ahead of every barrier
@@ -123,7 +131,8 @@ lk_track_kernel(LevelMeta lv, const float* __restrict__ pts,
     float* t = smem + l * 3 * nw;
     float a, b, c;
     build_template_clamped<WIN>(
-        lv.prev[l], lv.h[l], lv.w[l], block_origin(ty, half + 1, pad, lv.h[l], n3),
+        lv.prev[l] + seq * lv.bs_prev[l], lv.h[l], lv.w[l],
+        block_origin(ty, half + 1, pad, lv.h[l], n3),
         block_origin(tx, half + 1, pad, lv.w[l], n3), tx - floorf(tx),
         ty - floorf(ty), win, scr, scr + n3 * n3, scr + n3 * n3 + n1 * n1, t,
         t + nw, t + 2 * nw, &a, &b, &c);
@@ -149,7 +158,7 @@ lk_track_kernel(LevelMeta lv, const float* __restrict__ pts,
   int par = 0;
   for (int l = lv.n - 1; l >= 0; --l) {
     const int h = lv.h[l], w = lv.w[l];
-    const float* __restrict__ N = lv.next[l];
+    const float* __restrict__ N = lv.next[l] + seq * lv.bs_next[l];
     const float* t = smem + l * 3 * nw;
     float tv[PER], gxv[PER], gyv[PER];
 #pragma unroll
@@ -207,7 +216,7 @@ lk_track_kernel(LevelMeta lv, const float* __restrict__ pts,
 
 template <int WIN>
 __global__ void __launch_bounds__(LK_THREADS)
-lk_refine_kernel(const float* __restrict__ img, int h, int w,
+lk_refine_kernel(const float* __restrict__ img, long long img_bs, int h, int w,
                  const float* __restrict__ t_patch,
                  const float* __restrict__ gx_g, const float* __restrict__ gy_g,
                  const float* __restrict__ pos0,
@@ -219,7 +228,8 @@ lk_refine_kernel(const float* __restrict__ img, int h, int w,
   constexpr int PER = lk_per_thread(WIN);
   __shared__ float red[2][LK_NWARP * 4];
 
-  const int k = blockIdx.x;
+  const long long k = (long long)blockIdx.y * gridDim.x + blockIdx.x;  // slot
+  img += blockIdx.y * img_bs;                                           // its sequence
   const int tid = threadIdx.x;
   const float x0 = pos0[2 * k], y0 = pos0[2 * k + 1];
   if (!active[k]) {  // uniform across the block, ahead of every barrier
@@ -234,7 +244,7 @@ lk_refine_kernel(const float* __restrict__ img, int h, int w,
   const int win = WIN > 0 ? WIN : win_rt;
   const int half = (win - 1) / 2, pad = half + 2, n1 = win + 1, nw = win * win;
   const float win2 = (float)nw, eps2 = eps * eps;
-  const long long row = (long long)k * nw;
+  const long long row = k * nw;
 
   // The template rows, read once and coalesced into registers, with the
   // structure tensor and the raw template's sum (for its mean).
@@ -346,7 +356,7 @@ lk_refine_kernel(const float* __restrict__ img, int h, int w,
 
 template <int WIN>
 __global__ void __launch_bounds__(LK_THREADS)
-lk_extract_kernel(const float* __restrict__ img, int h, int w,
+lk_extract_kernel(const float* __restrict__ img, long long img_bs, int h, int w,
                   const float* __restrict__ centers, int win_rt,
                   float* __restrict__ out_t, float* __restrict__ out_gx,
                   float* __restrict__ out_gy) {
@@ -356,7 +366,8 @@ lk_extract_kernel(const float* __restrict__ img, int h, int w,
   __shared__ float gxb[(NMAX + 1) * (NMAX + 1)];
   __shared__ float gyb[(NMAX + 1) * (NMAX + 1)];
 
-  const int k = blockIdx.x;
+  const long long k = (long long)blockIdx.y * gridDim.x + blockIdx.x;  // slot
+  img += blockIdx.y * img_bs;                                           // its sequence
   const int tid = threadIdx.x;
   const int win = WIN > 0 ? WIN : win_rt;
   const int half = (win - 1) / 2, pad = half + 2, n3 = win + 3, nw = win * win;
@@ -373,7 +384,7 @@ lk_extract_kernel(const float* __restrict__ img, int h, int w,
                       block_origin(tx, half + 1, pad, w, n3), tx - floorf(tx),
                       ty - floorf(ty), win, tb, gxb, gyb, pr, pc, tv, gxv, gyv);
   // Straight from registers: consecutive threads write consecutive floats.
-  const long long row = (long long)k * nw;
+  const long long row = k * nw;
 #pragma unroll
   for (int j = 0; j < PER; ++j) {
     const int i = tid + j * LK_THREADS;
@@ -406,17 +417,19 @@ int lk_configure(void) {
       LK_SMEM_LIMIT);
 }
 
-// prev / next: host arrays of n_levels device pointers, one contiguous
-// (level_h[l], level_w[l]) float32 level each. active / out_ok: one byte
-// per slot (0 or 1).
+// prev / next: host arrays of n_levels device pointers, each to B
+// contiguous (level_h[l], level_w[l]) float32 planes bs_prev[l] /
+// bs_next[l] floats apart (0: one plane for all sequences). pts (B, K, 2);
+// active / out_ok: one byte per slot (0 or 1), (B, K).
 int lk_track_launch(const float* const* prev, const float* const* next,
+                    const long long* bs_prev, const long long* bs_next,
                     const int* level_h, const int* level_w, int n_levels,
-                    const float* pts, const unsigned char* active, int K,
-                    int win, int iters, float eps, float min_eig_thr,
+                    const float* pts, const unsigned char* active, int B,
+                    int K, int win, int iters, float eps, float min_eig_thr,
                     float* out_pos, unsigned char* out_ok,
                     cudaStream_t stream) {
   if (n_levels < 1 || n_levels > LK_MAX_LEVELS || win < 3 ||
-      win > LK_MAX_WIN || K < 1)
+      win > LK_MAX_WIN || K < 1 || B < 1 || B > 65535)
     return (int)cudaErrorInvalidValue;
   const int smem = lk_track_smem_bytes(win, n_levels);
   if (smem > LK_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
@@ -425,51 +438,62 @@ int lk_track_launch(const float* const* prev, const float* const* next,
     if (level_h[i] < 1 || level_w[i] < 1) return (int)cudaErrorInvalidValue;
     lv.prev[i] = prev[i];
     lv.next[i] = next[i];
+    lv.bs_prev[i] = bs_prev[i];
+    lv.bs_next[i] = bs_next[i];
     lv.h[i] = level_h[i];
     lv.w[i] = level_w[i];
   }
   lv.n = n_levels;
+  const dim3 grid(K, B);
   if (win == 21)
-    lk_track_kernel<21><<<K, LK_THREADS, smem, stream>>>(
+    lk_track_kernel<21><<<grid, LK_THREADS, smem, stream>>>(
         lv, pts, active, win, iters, eps, min_eig_thr, out_pos, out_ok);
   else
-    lk_track_kernel<0><<<K, LK_THREADS, smem, stream>>>(
+    lk_track_kernel<0><<<grid, LK_THREADS, smem, stream>>>(
         lv, pts, active, win, iters, eps, min_eig_thr, out_pos, out_ok);
   return (int)cudaGetLastError();
 }
 
-// img: one contiguous (h, w) float32 image, unpadded.
-int lk_refine_launch(const float* img, int h, int w, const float* t_patch,
-                     const float* gx, const float* gy, const float* pos0,
-                     const unsigned char* active, int K, int win, int iters,
-                     float eps, float max_shift, float* out_pos,
-                     unsigned char* out_ok, float* out_res,
+// img: B contiguous (h, w) float32 images, unpadded, img_bs floats apart
+// (0: one image for all sequences). t_patch / gx / gy (B, K, win^2), pos0
+// (B, K, 2), active (B, K).
+int lk_refine_launch(const float* img, long long img_bs, int h, int w,
+                     const float* t_patch, const float* gx, const float* gy,
+                     const float* pos0, const unsigned char* active, int B,
+                     int K, int win, int iters, float eps, float max_shift,
+                     float* out_pos, unsigned char* out_ok, float* out_res,
                      cudaStream_t stream) {
-  if (win < 3 || win > LK_MAX_WIN || K < 1 || h < 1 || w < 1)
+  if (win < 3 || win > LK_MAX_WIN || K < 1 || B < 1 || B > 65535 || h < 1 ||
+      w < 1)
     return (int)cudaErrorInvalidValue;
+  const dim3 grid(K, B);
   if (win == 21)
-    lk_refine_kernel<21><<<K, LK_THREADS, 0, stream>>>(
-        img, h, w, t_patch, gx, gy, pos0, active, win, iters, eps, max_shift,
-        out_pos, out_ok, out_res);
+    lk_refine_kernel<21><<<grid, LK_THREADS, 0, stream>>>(
+        img, img_bs, h, w, t_patch, gx, gy, pos0, active, win, iters, eps,
+        max_shift, out_pos, out_ok, out_res);
   else
-    lk_refine_kernel<0><<<K, LK_THREADS, 0, stream>>>(
-        img, h, w, t_patch, gx, gy, pos0, active, win, iters, eps, max_shift,
-        out_pos, out_ok, out_res);
+    lk_refine_kernel<0><<<grid, LK_THREADS, 0, stream>>>(
+        img, img_bs, h, w, t_patch, gx, gy, pos0, active, win, iters, eps,
+        max_shift, out_pos, out_ok, out_res);
   return (int)cudaGetLastError();
 }
 
-// img: one contiguous (h, w) float32 image, unpadded.
-int lk_extract_launch(const float* img, int h, int w, const float* centers,
-                      int K, int win, float* out_t, float* out_gx,
-                      float* out_gy, cudaStream_t stream) {
-  if (win < 3 || win > LK_MAX_WIN || K < 1 || h < 1 || w < 1)
+// img: B contiguous (h, w) float32 images, unpadded, img_bs floats apart
+// (0: one image for all sequences). centers (B, K, 2); out_* (B, K, win^2).
+int lk_extract_launch(const float* img, long long img_bs, int h, int w,
+                      const float* centers, int B, int K, int win,
+                      float* out_t, float* out_gx, float* out_gy,
+                      cudaStream_t stream) {
+  if (win < 3 || win > LK_MAX_WIN || K < 1 || B < 1 || B > 65535 || h < 1 ||
+      w < 1)
     return (int)cudaErrorInvalidValue;
+  const dim3 grid(K, B);
   if (win == 21)
-    lk_extract_kernel<21><<<K, LK_THREADS, 0, stream>>>(
-        img, h, w, centers, win, out_t, out_gx, out_gy);
+    lk_extract_kernel<21><<<grid, LK_THREADS, 0, stream>>>(
+        img, img_bs, h, w, centers, win, out_t, out_gx, out_gy);
   else
-    lk_extract_kernel<0><<<K, LK_THREADS, 0, stream>>>(
-        img, h, w, centers, win, out_t, out_gx, out_gy);
+    lk_extract_kernel<0><<<grid, LK_THREADS, 0, stream>>>(
+        img, img_bs, h, w, centers, win, out_t, out_gx, out_gy);
   return (int)cudaGetLastError();
 }
 

@@ -14,7 +14,9 @@ The port runs the same per-frame step in a Python loop over the chunk:
 
 The loop's own host read per frame is the keyframe flag that picks the
 marginalization branch of ``solve_and_slide`` (the reference's
-``lax.cond``).
+``lax.cond``). ``make_image_frame_step(host_branch=False)`` keeps the flag
+on the device and runs both branches instead, for ``torch.func.vmap`` (the
+fleet, parallel/batch.py).
 """
 
 from __future__ import annotations
@@ -131,14 +133,17 @@ class ImageChunkCarry(NamedTuple):
 
 
 def make_image_frame_step(params: est.StaticParams, num_iterations: int,
-                          tracker_cfg, camera, focal: float):
+                          tracker_cfg, camera, focal: float, *,
+                          host_branch: bool = True):
     """The full per-frame image-path step: tracker (CLAHE -> pyramid -> LK
     K1 + FB K3/K2 + anchor K2/K3 -> F-RANSAC -> refill -> undistort), then
     bookkeeping + solve + slide and the two gates.
 
     Returns fn(carry, ImageFrameInput, preprocessed, ransac_draws (N, 8)) ->
     (carry, (p (3,), q (4,), ok (), is_kf ())); ``preprocessed`` may be None
-    (the step then runs ``preprocess_frame`` itself)."""
+    (the step then runs ``preprocess_frame`` itself). ``host_branch`` reads
+    the keyframe flag on the host and runs one marginalization branch;
+    False runs both and selects on the device (no host read, vmap-safe)."""
 
     def one_frame(carry: ImageChunkCarry, inp: ImageFrameInput, pre, draws):
         tstate, tout = trk.detect_and_track(
@@ -150,8 +155,8 @@ def make_image_frame_step(params: est.StaticParams, num_iterations: int,
             vel=tout.vel.to(dtype), valid=tout.valid, imu_dt=inp.imu_dt,
             imu_acc=inp.imu_acc, imu_gyr=inp.imu_gyr, imu_cnt=inp.imu_cnt)
         state, is_kf = est.bookkeeping_step(carry.est_state, finp, params)
-        state, p, q, diag = est.solve_and_slide(state, bool(is_kf), params,
-                                                num_iterations)
+        state, p, q, diag = est.solve_and_slide(
+            state, bool(is_kf) if host_branch else is_kf, params, num_iterations)
         ema1, vema1, runaway = scale_gate(carry.depth_ema, carry.vel_ema,
                                           diag.med_depth, diag.vel_norm)
         lagd, lagv, lagi, growth = growth_gate(carry.lag_depth, carry.lag_vel,

@@ -6,8 +6,12 @@ mobile_slam_tpu.engine.estimator).
 * ``initial_advance_or_slide`` — the INITIAL-phase advance / slide.
 * ``apply_initialization`` / ``repropagate_window`` — inject the host init.
 
-The reference's ``lax.cond`` on the keyframe flag becomes a host branch:
-the engine reads the flag once per frame.
+The reference's ``lax.cond`` on the keyframe flag takes one of two forms in
+``solve_and_slide``: a python ``bool`` is a host branch (the single-stream
+engine reads the flag once per frame and runs one branch); a bool tensor
+runs both branches and selects per element with ``torch.where``, as
+``lax.cond`` does under ``jax.vmap`` (the fleet step, parallel/batch.py,
+which has one flag per sequence and no host read).
 """
 
 from __future__ import annotations
@@ -308,11 +312,13 @@ def _cam_pose(p, q, ex_t, ex_q):
     return r_wb @ rot.quat_to_rot(ex_q), p + r_wb @ ex_t
 
 
-def solve_and_slide(state: EstimatorState, is_kf: bool, params: StaticParams,
+def solve_and_slide(state: EstimatorState, is_kf, params: StaticParams,
                     num_iterations: int):
     """Triangulate, optimize, marginalize, slide. Returns (state, body_p,
-    body_q, diag); the pose is the newest window frame."""
-    is_kf = bool(is_kf)
+    body_q, diag); the pose is the newest window frame. ``is_kf`` a python
+    bool picks the keyframe branch on the host; a () bool tensor computes
+    both branches and selects on the device (module docstring)."""
+    on_device = isinstance(is_kf, torch.Tensor)
     w = state.window
     table = ft.triangulate(state.table, w.p, w.q, params.ex_t, params.ex_q,
                            params.init_depth, td=state.td)
@@ -322,27 +328,39 @@ def solve_and_slide(state: EstimatorState, is_kf: bool, params: StaticParams,
                                             td0=state.td)
     td = state.td
     x_post = XState(p=w.p, q=w.q, v=w.v, ba=w.ba, bg=w.bg, lam=res.x.lam, td=td)
-    if is_kf:
-        prior = marginalization.marginalize_old(
+
+    def margin_old():
+        return marginalization.marginalize_old(
             x_post, table, w, sqrt_info_from_cov(w.pre.cov[1:]), state.prior,
             params.ex_t, params.ex_q, sp)
+
+    def margin_new():
+        return marginalization.marginalize_new(x_post, state.prior,
+                                               params.ex_t, params.ex_q)
+
+    r0_wc, t0_wc = _cam_pose(w.p[0], w.q[0], params.ex_t, params.ex_q)
+    r1_wc, t1_wc = _cam_pose(w.p[1], w.q[1], params.ex_t, params.ex_q)
+
+    def slide_old():
+        return (_slide_window_old(w, state.prev_acc, state.prev_gyr),
+                ft.slide_old(table, True, r0_wc, t0_wc, r1_wc, t1_wc,
+                             params.init_depth, td=td))
+
+    def slide_new():
+        return (_slide_window_new(w, state.prev_acc, state.prev_gyr, params.noise),
+                ft.slide_new(table))
+
+    if on_device:
+        prior = tree_where(is_kf, margin_old(), margin_new())
+        (w_old, t_old), (w_new, t_new) = slide_old(), slide_new()
+        w2, table2 = tree_where(is_kf, w_old, w_new), tree_where(is_kf, t_old, t_new)
     else:
-        prior = marginalization.marginalize_new(x_post, state.prior,
-                                                params.ex_t, params.ex_q)
+        prior = margin_old() if is_kf else margin_new()
+        w2, table2 = slide_old() if is_kf else slide_new()
     # No-op with td disabled (its prior column is identically zero).
     J0 = prior.J0.clone()
     J0[:, layout.TD_COL] = J0[:, layout.TD_COL] * params.td_forget
     prior = prior._replace(J0=J0)
-
-    r0_wc, t0_wc = _cam_pose(w.p[0], w.q[0], params.ex_t, params.ex_q)
-    r1_wc, t1_wc = _cam_pose(w.p[1], w.q[1], params.ex_t, params.ex_q)
-    if is_kf:
-        w2 = _slide_window_old(w, state.prev_acc, state.prev_gyr)
-        table2 = ft.slide_old(table, True, r0_wc, t0_wc, r1_wc, t1_wc,
-                              params.init_depth, td=td)
-    else:
-        w2 = _slide_window_new(w, state.prev_acc, state.prev_gyr, params.noise)
-        table2 = ft.slide_new(table)
     table2 = ft.remove_failures(table2)
 
     solved = (table.fid >= 0) & (table.solve_flag == 1) & (table.depth > 0)
@@ -360,7 +378,8 @@ def solve_and_slide(state: EstimatorState, is_kf: bool, params: StaticParams,
     n_tracked = torch.sum((state.table.fid >= 0) & cur_mask
                           & (state.table.used_num >= 2)).to(torch.int32)
     diag = StepDiag(
-        is_keyframe=torch.full((), is_kf, dtype=torch.bool, device=w.p.device),
+        is_keyframe=(is_kf if on_device
+                     else torch.full((), is_kf, dtype=torch.bool, device=w.p.device)),
         culled_ids=culled_ids, last_track_num=n_tracked,
         solver_cost0=res.cost0, solver_cost=res.cost,
         accepted_steps=res.accepted,

@@ -32,11 +32,11 @@ def _set_rows(base: torch.Tensor, idx: torch.Tensor, vals, col=None) -> torch.Te
     ext = torch.cat([base, torch.zeros_like(base[:1])], dim=0)
     if not isinstance(vals, torch.Tensor):
         vals = torch.full((), vals, dtype=base.dtype, device=base.device)
-    if col is None:
-        ext[idx] = vals
-    else:
-        ext[idx, torch.as_tensor(col, device=idx.device).expand(idx.shape)] = vals
-    return ext[:base.shape[0]]
+    index = (idx,) if col is None else (
+        idx, torch.as_tensor(col, device=idx.device).expand(idx.shape))
+    # Out of place: torch.func.vmap cannot write a batched value into a
+    # buffer that is not batched.
+    return ext.index_put(index, vals)[:base.shape[0]]
 
 
 def add_and_check_parallax(table: FeatureTable, ids, obs, uv, vel, valid,

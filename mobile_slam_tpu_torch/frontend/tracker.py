@@ -199,10 +199,9 @@ def detect_and_track(state: TrackerState, img: torch.Tensor, ts, camera: Camera,
     slot = free_order[torch.clamp(new_rank, 0, K - 1)]
     slot = torch.where(can_place, slot, K)
 
-    def place(base, vals):
+    def place(base, vals):     # out of place: torch.func.vmap batches slot
         ext = torch.cat([base, torch.zeros_like(base[:1])], dim=0)
-        ext[slot] = vals
-        return ext[:K]
+        return ext.index_put((slot,), vals)[:K]
 
     pts_out = place(new_pts, cand_pts.to(new_pts.dtype))
     ids = torch.where(active, state.ids, torch.full_like(state.ids, -1))

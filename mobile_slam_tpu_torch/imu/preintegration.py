@@ -91,6 +91,17 @@ def _select_last(arr, count, ident):
     return torch.where(empty, ident, val)
 
 
+def _block_matrix(bshape, rows) -> torch.Tensor:
+    """A matrix of 3x3 blocks in the state order P, R, V, BA, BG: ``rows``
+    lists each block row, a block a tensor broadcast to ``bshape`` (..., 3,
+    3) or None for zeros. Built out of place (a write into a fresh buffer
+    cannot take a value that ``torch.func.vmap`` batches)."""
+    like = next(b for row in rows for b in row if b is not None)
+    zero = torch.zeros(bshape, dtype=like.dtype, device=like.device)
+    return torch.cat([torch.cat([zero if b is None else b.expand(bshape) for b in row],
+                                dim=-1) for row in rows], dim=-2)
+
+
 def preintegrate_parallel(acc0, gyr0, dt, acc, gyr, count, lin_ba, lin_bg,
                           noise) -> Preintegration:
     """Preintegrate (batched) intervals of up to M readings."""
@@ -129,38 +140,23 @@ def preintegrate_parallel(acc0, gyr0, dt, acc, gyr, count, lin_ba, lin_bg,
     eyeb = eye3.expand(bshape)
     R_ra1 = R @ r_a1
 
-    Fm = torch.zeros(dt.shape + (15, 15), dtype=dtype, device=dev)
-    Fm[..., O_P:O_P + 3, O_P:O_P + 3] = eyeb
-    Fm[..., O_P:O_P + 3, O_R:O_R + 3] = (-0.25 * (R_prev @ r_a0) * dt2
-                                        - 0.25 * (R_ra1 @ I_left) * dt2)
-    Fm[..., O_P:O_P + 3, O_V:O_V + 3] = eye3 * dtc
-    Fm[..., O_P:O_P + 3, O_BA:O_BA + 3] = -0.25 * (R_prev + R) * dt2
-    Fm[..., O_P:O_P + 3, O_BG:O_BG + 3] = 0.25 * R_ra1 * dt2 * dtc
-    Fm[..., O_R:O_R + 3, O_R:O_R + 3] = I_left
-    Fm[..., O_R:O_R + 3, O_BG:O_BG + 3] = -eye3 * dtc
-    Fm[..., O_V:O_V + 3, O_R:O_R + 3] = (-0.5 * (R_prev @ r_a0) * dtc
-                                        - 0.5 * (R_ra1 @ I_left) * dtc)
-    Fm[..., O_V:O_V + 3, O_V:O_V + 3] = eyeb
-    Fm[..., O_V:O_V + 3, O_BA:O_BA + 3] = -0.5 * (R_prev + R) * dtc
-    Fm[..., O_V:O_V + 3, O_BG:O_BG + 3] = 0.5 * R_ra1 * dtc * dtc
-    Fm[..., O_BA:O_BA + 3, O_BA:O_BA + 3] = eyeb
-    Fm[..., O_BG:O_BG + 3, O_BG:O_BG + 3] = eyeb
-
-    V = torch.zeros(dt.shape + (15, 18), dtype=dtype, device=dev)
+    Z = None    # a zero block
+    f_pr = -0.25 * (R_prev @ r_a0) * dt2 - 0.25 * (R_ra1 @ I_left) * dt2
+    f_vr = -0.5 * (R_prev @ r_a0) * dtc - 0.5 * (R_ra1 @ I_left) * dtc
+    Fm = _block_matrix(bshape, [     # block rows and columns P, R, V, BA, BG
+        [eyeb, f_pr, eye3 * dtc, -0.25 * (R_prev + R) * dt2, 0.25 * R_ra1 * dt2 * dtc],
+        [Z, I_left, Z, Z, -eye3 * dtc],
+        [Z, f_vr, eyeb, -0.5 * (R_prev + R) * dtc, 0.5 * R_ra1 * dtc * dtc],
+        [Z, Z, Z, eyeb, Z],
+        [Z, Z, Z, Z, eyeb]])
     v03 = -0.125 * R_ra1 * dt2 * dtc
-    V[..., O_P:O_P + 3, 0:3] = 0.25 * R_prev * dt2
-    V[..., O_P:O_P + 3, 3:6] = v03
-    V[..., O_P:O_P + 3, 6:9] = 0.25 * R * dt2
-    V[..., O_P:O_P + 3, 9:12] = v03
-    V[..., O_R:O_R + 3, 3:6] = 0.5 * eye3 * dtc
-    V[..., O_R:O_R + 3, 9:12] = 0.5 * eye3 * dtc
     v63 = -0.25 * R_ra1 * dtc * dtc
-    V[..., O_V:O_V + 3, 0:3] = 0.5 * R_prev * dtc
-    V[..., O_V:O_V + 3, 3:6] = v63
-    V[..., O_V:O_V + 3, 6:9] = 0.5 * R * dtc
-    V[..., O_V:O_V + 3, 9:12] = v63
-    V[..., O_BA:O_BA + 3, 12:15] = eye3 * dtc
-    V[..., O_BG:O_BG + 3, 15:18] = eye3 * dtc
+    V = _block_matrix(bshape, [      # noise columns a0, g0, a1, g1, ba, bg
+        [0.25 * R_prev * dt2, v03, 0.25 * R * dt2, v03, Z, Z],
+        [Z, 0.5 * eye3 * dtc, Z, 0.5 * eye3 * dtc, Z, Z],
+        [0.5 * R_prev * dtc, v63, 0.5 * R * dtc, v63, Z, Z],
+        [Z, Z, Z, Z, eye3 * dtc, Z],
+        [Z, Z, Z, Z, Z, eye3 * dtc]])
     W_step = V @ noise @ V.transpose(-1, -2)
 
     # Affine-pair composition (F, W) -> (F_i J, F_i C F_iᵀ + W_i), in order.
@@ -200,9 +196,10 @@ def continue_preintegration_parallel(carry: Preintegration, stream_acc,
     dv = carry.dv + torch.einsum("...ij,...j->...i", R_c, inc.dv)
     dp = (carry.dp + carry.dv * inc.sum_dt[..., None]
           + torch.einsum("...ij,...j->...i", R_c, inc.dp))
-    T = torch.eye(15, dtype=dtype, device=dev).expand(R_c.shape[:-2] + (15, 15)).clone()
-    T[..., O_P:O_P + 3, O_P:O_P + 3] = R_c
-    T[..., O_V:O_V + 3, O_V:O_V + 3] = R_c
+    eye3, Z = torch.eye(3, dtype=dtype, device=dev), None
+    T = _block_matrix(R_c.shape, [[R_c, Z, Z, Z, Z], [Z, eye3, Z, Z, Z],
+                                  [Z, Z, R_c, Z, Z], [Z, Z, Z, eye3, Z],
+                                  [Z, Z, Z, Z, eye3]])
     Tt = T.transpose(-1, -2)
     J_B = T @ inc.jac @ Tt
     jac = J_B @ carry.jac

@@ -24,10 +24,11 @@ def clahe(img: torch.Tensor, clip_limit: float = 3.0, tiles: int = 8) -> torch.T
     ty = torch.arange(h, device=dev) // th
     tx = torch.arange(w, device=dev) // tw
     tile = ty[:, None] * tiles + tx[None, :]
-    # Counts by scatter-add: bincount would read its output size on the host.
+    # Counts by scatter-add: bincount would read its output size on the host;
+    # out of place, as torch.func.vmap batches the counts.
     bins = (tile * 256 + xi).reshape(-1)
     hist = torch.zeros(tiles * tiles * 256, dtype=torch.int64, device=dev)
-    hist = hist.scatter_add_(0, bins, torch.ones_like(bins))
+    hist = hist.scatter_add(0, bins, torch.ones_like(bins))
     hist = hist.reshape(tiles * tiles, 256).to(torch.float32)
 
     limit = max(clip_limit * area / 256.0, 1.0)

@@ -20,8 +20,16 @@ tracker's own unpadded images and clamp each pixel's row and column at the
 load, which gives the same values (``_gather_clamped``), so their wrappers
 copy nothing when the images are contiguous float32.
 
+Each public operation is a ``torch.library`` custom op with a vmap rule,
+so that ``torch.func.vmap`` of the tracker (the fleet, parallel/batch.py)
+takes a batch of B sequences through it: on CUDA tensors the rule makes ONE
+launch over all B x K point slots (the kernels' grid is (K, B)); on CPU
+tensors it runs the plain version once per sequence (the reference's
+``lax.map`` in ``lk_pallas._sequential_vmap``). On the card it never loops
+over single launches and never takes the plain version.
+
 Each wrapper adds one to ``launch_counts[name]`` where it launches its
-kernel, and nowhere else.
+kernel (one per batched launch too), and nowhere else.
 """
 
 from __future__ import annotations
@@ -361,11 +369,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.lk_configure.argtypes = []
     lib.lk_track_smem_bytes.argtypes = [ci, ci]
-    lib.lk_track_launch.argtypes = [vp, vp, vp, vp, ci, vp, vp, ci, ci, ci,
-                                    cf, cf, vp, vp, vp]
-    lib.lk_refine_launch.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, ci, ci,
-                                     ci, cf, cf, vp, vp, vp, vp]
-    lib.lk_extract_launch.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp, vp, vp]
+    cl = ctypes.c_longlong
+    lib.lk_track_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, vp, vp, ci, ci,
+                                    ci, ci, cf, cf, vp, vp, vp]
+    lib.lk_refine_launch.argtypes = [vp, cl, ci, ci, vp, vp, vp, vp, vp, ci, ci,
+                                     ci, ci, cf, cf, vp, vp, vp, vp]
+    lib.lk_extract_launch.argtypes = [vp, cl, ci, ci, vp, ci, ci, ci, vp, vp, vp,
+                                      vp]
     for fn in (lib.lk_configure, lib.lk_track_smem_bytes, lib.lk_track_launch,
                lib.lk_refine_launch, lib.lk_extract_launch):
         fn.restype = ci
@@ -421,6 +431,29 @@ def _f32c(t: torch.Tensor) -> torch.Tensor:
     return t.to(F32).contiguous()
 
 
+def _planes(t: torch.Tensor) -> torch.Tensor:
+    """(B, h, w) float32 whose every (h, w) plane is contiguous: ``t``
+    itself when it is (a batch stride of 0 included: one plane shared by all
+    sequences), else one contiguous copy."""
+    t = t.to(F32)
+    if t.stride(-1) != 1 or t.stride(-2) != t.shape[-1]:
+        t = t.contiguous()
+    return t
+
+
+def _batch_stride(t: torch.Tensor) -> int:
+    """Floats from one sequence's plane to the next: 0 for a single (h, w)
+    plane (the single-stream launch)."""
+    return t.stride(0) if t.dim() == 3 else 0
+
+
+def _check_batch(b: int, *ts) -> None:
+    for t in ts:
+        if t.dim() != 3 or t.shape[0] != b or t.numel() == 0:
+            raise ValueError(f"batched images must be non-empty (B={b}, H, W), "
+                             f"got {tuple(t.shape)}")
+
+
 def _track_prep(prev_pyr, next_pyr, pts, active, params: LKParams):
     _check_window(params.window)
     n_lvl = len(prev_pyr)
@@ -443,21 +476,44 @@ def _track_prep(prev_pyr, next_pyr, pts, active, params: LKParams):
             _f32c(pts), active.bool().contiguous(), params)
 
 
+def _track_prep_batched(prev_pyr, next_pyr, pts, active, params: LKParams):
+    """``_track_prep`` for a batch: levels (B, H_l, W_l), points (B, K, 2),
+    active (B, K). Levels whose planes are contiguous float32 are handed
+    over as they are, a batch stride of 0 included."""
+    if pts.dim() != 3 or pts.shape[0] < 1:
+        raise ValueError(f"batched points must be (B, K, 2), got {tuple(pts.shape)}")
+    b = pts.shape[0]
+    if active.shape != pts.shape[:2]:
+        raise ValueError(f"active must be {tuple(pts.shape[:2])}, got {tuple(active.shape)}")
+    _check_batch(b, *prev_pyr, *next_pyr)
+    _track_prep([p[0] for p in prev_pyr], [p[0] for p in next_pyr], pts[0],
+                active[0], params)
+    return (tuple(_planes(p) for p in prev_pyr), tuple(_planes(p) for p in next_pyr),
+            _f32c(pts), active.bool().contiguous(), params)
+
+
 def _track_launch(prev_lv, next_lv, pts_c, act, params: LKParams):
+    """One launch over every slot: (K, 2) points and (H_l, W_l) levels, or
+    a batch of (B, K, 2) points and (B, H_l, W_l) levels."""
     lib = build_kernels()
-    k, n_lvl, dev = pts_c.shape[0], len(prev_lv), pts_c.device
-    out_pos = torch.empty((k, 2), dtype=F32, device=dev)
-    out_ok = torch.empty((k,), dtype=torch.bool, device=dev)
+    n_lvl, dev = len(prev_lv), pts_c.device
+    b = pts_c.shape[0] if pts_c.dim() == 3 else 1
+    k = pts_c.shape[-2]
+    out_pos = torch.empty(pts_c.shape, dtype=F32, device=dev)
+    out_ok = torch.empty(pts_c.shape[:-1], dtype=torch.bool, device=dev)
     prev_a = (ctypes.c_void_p * n_lvl)(*[p.data_ptr() for p in prev_lv])
     next_a = (ctypes.c_void_p * n_lvl)(*[p.data_ptr() for p in next_lv])
-    h_a = (ctypes.c_int * n_lvl)(*[p.shape[0] for p in prev_lv])
-    w_a = (ctypes.c_int * n_lvl)(*[p.shape[1] for p in prev_lv])
+    bsp_a = (ctypes.c_longlong * n_lvl)(*[_batch_stride(p) for p in prev_lv])
+    bsn_a = (ctypes.c_longlong * n_lvl)(*[_batch_stride(p) for p in next_lv])
+    h_a = (ctypes.c_int * n_lvl)(*[p.shape[-2] for p in prev_lv])
+    w_a = (ctypes.c_int * n_lvl)(*[p.shape[-1] for p in prev_lv])
     with torch.cuda.device(dev):
         _configure(lib)
         rc = lib.lk_track_launch(
             ctypes.addressof(prev_a), ctypes.addressof(next_a),
+            ctypes.addressof(bsp_a), ctypes.addressof(bsn_a),
             ctypes.addressof(h_a), ctypes.addressof(w_a), n_lvl,
-            pts_c.data_ptr(), act.data_ptr(), k, params.window, params.iters,
+            pts_c.data_ptr(), act.data_ptr(), b, k, params.window, params.iters,
             float(params.eps), float(params.min_eig_threshold),
             out_pos.data_ptr(), out_ok.data_ptr(), cuda_build.stream(pts_c))
     cuda_build.check(rc, "lk_track_launch")
@@ -486,17 +542,38 @@ def _refine_prep(img, t_patch, gx, gy, pos0, active, window, iters, eps,
             active.bool().contiguous(), window, iters, eps, max_shift)
 
 
+def _refine_prep_batched(img, t_patch, gx, gy, pos0, active, window, iters,
+                         eps, max_shift):
+    """``_refine_prep`` for a batch: images (B, H, W), templates (B, K,
+    window^2), pos0 (B, K, 2), active (B, K)."""
+    if pos0.dim() != 3 or pos0.shape[0] < 1:
+        raise ValueError(f"batched points must be (B, K, 2), got {tuple(pos0.shape)}")
+    b = pos0.shape[0]
+    for t in (t_patch, gx, gy, active):
+        if t.shape[0] != b:
+            raise ValueError(f"every batched input must lead with B={b}")
+    _check_batch(b, img)
+    _refine_prep(img[0], t_patch[0], gx[0], gy[0], pos0[0], active[0], window,
+                 iters, eps, max_shift)
+    return (_planes(img), _f32c(t_patch), _f32c(gx), _f32c(gy), _f32c(pos0),
+            active.bool().contiguous(), window, iters, eps, max_shift)
+
+
 def _refine_launch(img, tp, gxc, gyc, p0, act, window, iters, eps, max_shift):
+    """One launch over every slot: (K, ...) inputs and an (H, W) image, or a
+    batch of (B, K, ...) inputs and (B, H, W) images."""
     lib = build_kernels()
-    k, dev = p0.shape[0], p0.device
-    h, w = img.shape
-    out_pos = torch.empty((k, 2), dtype=F32, device=dev)
-    out_ok = torch.empty((k,), dtype=torch.bool, device=dev)
-    out_res = torch.empty((k,), dtype=F32, device=dev)
+    dev = p0.device
+    b = p0.shape[0] if p0.dim() == 3 else 1
+    k = p0.shape[-2]
+    h, w = img.shape[-2:]
+    out_pos = torch.empty(p0.shape, dtype=F32, device=dev)
+    out_ok = torch.empty(p0.shape[:-1], dtype=torch.bool, device=dev)
+    out_res = torch.empty(p0.shape[:-1], dtype=F32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.lk_refine_launch(
-            img.data_ptr(), h, w, tp.data_ptr(), gxc.data_ptr(),
-            gyc.data_ptr(), p0.data_ptr(), act.data_ptr(), k, window, iters,
+            img.data_ptr(), _batch_stride(img), h, w, tp.data_ptr(), gxc.data_ptr(),
+            gyc.data_ptr(), p0.data_ptr(), act.data_ptr(), b, k, window, iters,
             float(eps), float(max_shift), out_pos.data_ptr(), out_ok.data_ptr(),
             out_res.data_ptr(), cuda_build.stream(p0))
     cuda_build.check(rc, "lk_refine_launch")
@@ -520,14 +597,28 @@ def _extract_prep(img, centers, window):
     return _f32c(img), _f32c(centers), window
 
 
+def _extract_prep_batched(img, centers, window):
+    """``_extract_prep`` for a batch: images (B, H, W), centers (B, K, 2)."""
+    if centers.dim() != 3 or centers.shape[0] < 1:
+        raise ValueError(f"batched points must be (B, K, 2), got {tuple(centers.shape)}")
+    _check_batch(centers.shape[0], img)
+    _extract_prep(img[0], centers[0], window)
+    return _planes(img), _f32c(centers), window
+
+
 def _extract_launch(img, c, window):
+    """One launch over every slot: (K, 2) centers and an (H, W) image, or a
+    batch of (B, K, 2) centers and (B, H, W) images."""
     lib = build_kernels()
-    k, dev = c.shape[0], c.device
-    h, w = img.shape
-    outs = [torch.empty((k, window * window), dtype=F32, device=dev) for _ in range(3)]
+    dev = c.device
+    b = c.shape[0] if c.dim() == 3 else 1
+    k = c.shape[-2]
+    h, w = img.shape[-2:]
+    outs = [torch.empty(c.shape[:-1] + (window * window,), dtype=F32, device=dev)
+            for _ in range(3)]
     with torch.cuda.device(dev):
         rc = lib.lk_extract_launch(
-            img.data_ptr(), h, w, c.data_ptr(), k, window,
+            img.data_ptr(), _batch_stride(img), h, w, c.data_ptr(), b, k, window,
             outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
             cuda_build.stream(c))
     cuda_build.check(rc, "lk_extract_launch")
@@ -540,7 +631,7 @@ def _extract_patches_cuda(img, centers, window):
 
 
 # ---------------------------------------------------------------------------
-# Public dispatch
+# Public dispatch: custom ops with a vmap rule
 # ---------------------------------------------------------------------------
 
 def _route(t: torch.Tensor) -> str:
@@ -551,12 +642,104 @@ def _route(t: torch.Tensor) -> str:
     raise ValueError(f"LK ops run on CPU or CUDA tensors, not {t.device}")
 
 
-def track_pyramidal(prev_pyr, next_pyr, pts, active, params: LKParams):
-    """Coarse-to-fine KLT. prev_pyr/next_pyr: sequences of (H/2^l, W/2^l)
-    images; pts (K, 2); active (K,). Returns (pos (K, 2) float32, ok (K,))."""
+def _batched(t: torch.Tensor, dim, b: int) -> torch.Tensor:
+    """``t`` with its vmapped dimension first; an input that is not vmapped
+    is expanded to B without a copy (batch stride 0)."""
+    return t.expand(b, *t.shape) if dim is None else t.movedim(dim, 0)
+
+
+def _member(t: torch.Tensor, dim, i: int) -> torch.Tensor:
+    """Sequence ``i`` of a vmapped input (the input itself if not vmapped)."""
+    return t if dim is None else t.select(dim, i)
+
+
+def _per_sequence(fn, info, in_dims, args):
+    """The CPU vmap rule: ``fn`` once per sequence, outputs stacked."""
+    def arg(a, d, i):
+        if isinstance(a, (list, tuple)):
+            return [_member(x, dx, i) for x, dx in zip(a, d)]
+        return _member(a, d, i) if isinstance(a, torch.Tensor) else a
+
+    outs = [fn(*[arg(a, d, i) for a, d in zip(args, in_dims)])
+            for i in range(info.batch_size)]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+_NS = "mobile_slam_tpu_torch"
+
+
+@torch.library.custom_op(
+    f"{_NS}::track_pyramidal", mutates_args=(),
+    schema="(Tensor[] prev_pyr, Tensor[] next_pyr, Tensor pts, Tensor active, "
+           "int window, int iters, float eps, float min_eig) -> (Tensor, Tensor)")
+def _track_op(prev_pyr, next_pyr, pts, active, window, iters, eps, min_eig):
+    params = LKParams(window, len(prev_pyr) - 1, iters, eps, min_eig)
     if _route(pts) == "cuda":
         return _track_pyramidal_cuda(prev_pyr, next_pyr, pts, active, params)
     return track_pyramidal_ref(prev_pyr, next_pyr, pts, active, params)
+
+
+@torch.library.register_vmap(f"{_NS}::track_pyramidal")
+def _track_vmap(info, in_dims, prev_pyr, next_pyr, pts, active, window, iters,
+                eps, min_eig):
+    args = (prev_pyr, next_pyr, pts, active, window, iters, eps, min_eig)
+    if _route(pts) == "cpu":
+        return _per_sequence(_track_op, info, in_dims, args), (0, 0)
+    b = info.batch_size
+    params = LKParams(window, len(prev_pyr) - 1, iters, eps, min_eig)
+    prep = _track_prep_batched(
+        [_batched(t, d, b) for t, d in zip(prev_pyr, in_dims[0])],
+        [_batched(t, d, b) for t, d in zip(next_pyr, in_dims[1])],
+        _batched(pts, in_dims[2], b), _batched(active, in_dims[3], b), params)
+    return _track_launch(*prep), (0, 0)
+
+
+@torch.library.custom_op(
+    f"{_NS}::refine_template", mutates_args=(),
+    schema="(Tensor img, Tensor t_patch, Tensor gx, Tensor gy, Tensor pos0, "
+           "Tensor active, int window, int iters, float eps, float max_shift) "
+           "-> (Tensor, Tensor, Tensor)")
+def _refine_op(img, t_patch, gx, gy, pos0, active, window, iters, eps, max_shift):
+    if _route(pos0) == "cuda":
+        return _refine_template_cuda(img, t_patch, gx, gy, pos0, active, window,
+                                     iters, eps, max_shift)
+    return refine_template_ref(img, t_patch, gx, gy, pos0, active, window,
+                               iters, eps, max_shift)
+
+
+@torch.library.register_vmap(f"{_NS}::refine_template")
+def _refine_vmap(info, in_dims, *args):
+    if _route(args[4]) == "cpu":
+        return _per_sequence(_refine_op, info, in_dims, args), (0, 0, 0)
+    b = info.batch_size
+    tensors = [_batched(t, d, b) for t, d in zip(args[:6], in_dims[:6])]
+    return _refine_launch(*_refine_prep_batched(*tensors, *args[6:])), (0, 0, 0)
+
+
+@torch.library.custom_op(
+    f"{_NS}::extract_patches", mutates_args=(),
+    schema="(Tensor img, Tensor centers, int window) -> (Tensor, Tensor, Tensor)")
+def _extract_op(img, centers, window):
+    if _route(centers) == "cuda":
+        return _extract_patches_cuda(img, centers, window)
+    return extract_patches_ref(img, centers, window)
+
+
+@torch.library.register_vmap(f"{_NS}::extract_patches")
+def _extract_vmap(info, in_dims, img, centers, window):
+    if _route(centers) == "cpu":
+        return _per_sequence(_extract_op, info, in_dims, (img, centers, window)), (0, 0, 0)
+    b = info.batch_size
+    prep = _extract_prep_batched(_batched(img, in_dims[0], b),
+                                 _batched(centers, in_dims[1], b), window)
+    return _extract_launch(*prep), (0, 0, 0)
+
+
+def track_pyramidal(prev_pyr, next_pyr, pts, active, params: LKParams):
+    """Coarse-to-fine KLT. prev_pyr/next_pyr: sequences of (H/2^l, W/2^l)
+    images; pts (K, 2); active (K,). Returns (pos (K, 2) float32, ok (K,))."""
+    return _track_op(list(prev_pyr), list(next_pyr), pts, active, params.window,
+                     params.iters, float(params.eps), float(params.min_eig_threshold))
 
 
 def refine_template(img, t_patch, gx, gy, pos0, active, window, iters, eps,
@@ -564,15 +747,10 @@ def refine_template(img, t_patch, gx, gy, pos0, active, window, iters, eps,
     """Zero-mean KLT of (K, window*window) templates against ``img`` from
     ``pos0``, total excursion clamped to ``max_shift``. Returns (pos, ok,
     resid)."""
-    if _route(pos0) == "cuda":
-        return _refine_template_cuda(img, t_patch, gx, gy, pos0, active,
-                                     window, iters, eps, max_shift)
-    return refine_template_ref(img, t_patch, gx, gy, pos0, active, window,
-                               iters, eps, max_shift)
+    return _refine_op(img, t_patch, gx, gy, pos0, active, window, iters,
+                      float(eps), float(max_shift))
 
 
 def extract_patches(img, centers, window):
     """Template + Scharr gradient patches, each (K, window*window)."""
-    if _route(centers) == "cuda":
-        return _extract_patches_cuda(img, centers, window)
-    return extract_patches_ref(img, centers, window)
+    return _extract_op(img, centers, window)

@@ -253,8 +253,7 @@ def build_normal_eqs(x: XState, table: FeatureTable, pre: Preintegration,
     H_ss[cols[:, None], cols[None, :]] += H72
     g_s = g_imu.clone()
     g_s[cols] += g72
-    H_sl = torch.zeros((S, F), dtype=dtype, device=dev)
-    H_sl[cols] = H_sl72
+    H_sl = torch.zeros((S, F), dtype=dtype, device=dev).index_put((cols,), H_sl72)
 
     dx0 = prior_dx(prior, x, ex_t, ex_q)
     r_prior = prior.r0 + prior.J0 @ dx0

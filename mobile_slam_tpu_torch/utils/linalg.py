@@ -31,5 +31,7 @@ def median(x: torch.Tensor) -> torch.Tensor:
 
 
 def tree_where(cond, a, b):
-    """Field-wise torch.where over two NamedTuples of tensors."""
-    return type(a)(*[torch.where(cond, u, v) for u, v in zip(a, b)])
+    """Field-wise torch.where over two NamedTuples of tensors (nested
+    NamedTuples field by field)."""
+    return type(a)(*[tree_where(cond, u, v) if isinstance(u, tuple)
+                     else torch.where(cond, u, v) for u, v in zip(a, b)])

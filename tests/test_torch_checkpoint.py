@@ -24,13 +24,13 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tests._torch_parity import F64, tonp
+from tests._torch_parity import F64, example_state, tonp
 from tests.test_checkpoint_resume import make_cfg
 
 from mobile_slam_tpu.engine import checkpoint as jckpt
 from mobile_slam_tpu.engine import estimator as jest
 from mobile_slam_tpu.engine import vio_engine as jvio
-from mobile_slam_tpu.engine.example import make_example_state, tiny_config
+from mobile_slam_tpu.engine.example import tiny_config
 from mobile_slam_tpu.frontend import tracker as jtrk
 from mobile_slam_tpu_torch import convert
 from mobile_slam_tpu_torch.engine import checkpoint as ckpt
@@ -65,7 +65,7 @@ def _leaves(tree):
 def test_jax_snapshot_loads_field_for_field(tmp_path):
     cfg = tiny_config()
     jp = jest.make_params(cfg, jnp.float64)
-    jstate, _ = make_example_state(cfg, jp, jnp.float64)
+    jstate, _ = example_state(cfg, jp, jnp.float64)
     jtracker = _filled_tracker_state(cfg)
     path = str(tmp_path / "jax.npz")
     jckpt.save_state(path, jstate, jtracker)

@@ -28,12 +28,12 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tests._torch_parity import F64, ransac_draws, t64, tonp
+from tests._torch_parity import F64, example_state, ransac_draws, t64, tonp
 from tests.test_torch_tracker import tracker_sequence
 
 from mobile_slam_tpu.engine import chunked as jchunked
 from mobile_slam_tpu.engine import estimator as jest
-from mobile_slam_tpu.engine.example import make_example_state, tiny_config
+from mobile_slam_tpu.engine.example import tiny_config
 from mobile_slam_tpu.frontend import tracker as jtrk
 from mobile_slam_tpu.models.cameras.base import make_camera as jax_camera
 from mobile_slam_tpu.ops import lk_pallas
@@ -114,7 +114,7 @@ def frame_world():
     jtst = jtrk.TrackerState(tuple(map(jnp.asarray, tst_np.pyr)),
                              *map(jnp.asarray, tst_np[1:]))
     jp = jest.make_params(cfg, jnp.float64)
-    est_j, inp_j = make_example_state(cfg, jp, jnp.float64)
+    est_j, inp_j = example_state(cfg, jp, jnp.float64)
     return cfg, tcfg, jax_camera(cfg.camera, dtype=jnp.float64), jp, est_j, inp_j, jtst, frames
 
 

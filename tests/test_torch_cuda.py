@@ -4,7 +4,8 @@ Runs chip_smoke.py in a subprocess: it builds the CUDA kernels, holds
 each against its plain PyTorch version at main-path shapes and drives the
 port's engine and chunked server over the bench sequence. The subprocess
 exits with 42 when no CUDA device is present, and the test then skips; the
-probe-kernel test decides inside itself and skips without a card too.
+probe-kernel and fleet-kernel tests decide inside themselves and skip
+without a card too.
 """
 
 import os
@@ -52,4 +53,49 @@ def test_probe_kernels_match_plain_versions():
         tol = 0.02 if mode == "full" else 1e-6
         assert float((a - b).abs().max()) <= tol, mode
         assert float(((wa - wb).abs() / wb.abs().clamp(min=1.0)).max()) <= 1e-4, mode
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_lk_kernels_take_a_fleet_in_one_launch():
+    """Under torch.func.vmap on CUDA tensors, K1, K2 and K3 each launch once
+    for the whole fleet, bit-equal to one launch per sequence."""
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from mobile_slam_tpu_torch.ops import image as im
+    from mobile_slam_tpu_torch.ops import lk
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, k, win = 3, 40, 21
+    imgs = torch.rand((n, 128, 160), generator=gen, device="cuda") * 255
+    nxt = torch.roll(imgs, (1, 2), dims=(1, 2))
+    pyr0 = [torch.stack(x) for x in zip(*[im.build_pyramid(a, 2) for a in imgs])]
+    pyr1 = [torch.stack(x) for x in zip(*[im.build_pyramid(a, 2) for a in nxt])]
+    pts = torch.rand((n, k, 2), generator=gen, device="cuda") * 100 + 14
+    act = torch.rand((n, k), generator=gen, device="cuda") > 0.1
+    prm = lk.LKParams(window=win, levels=2)
+
+    def one_launch(fn, *args):
+        before = dict(lk.launch_counts)
+        out = torch.func.vmap(fn)(*args)
+        assert sum(lk.launch_counts[x] - before[x] for x in before) == 1
+        return out
+
+    def same(batched, singles):
+        for s, single in enumerate(singles):
+            for x, y in zip(batched, single):
+                assert bool(((x[s] == y) | (x[s].isnan() & y.isnan())).all())
+
+    pos = one_launch(lambda a, b, p, q: lk.track_pyramidal(a, b, p, q, prm), pyr0, pyr1,
+                     pts, act)
+    same(pos, [lk.track_pyramidal([p[s] for p in pyr0], [p[s] for p in pyr1], pts[s],
+                                  act[s], prm) for s in range(n)])
+    tm = one_launch(lambda a, c: lk.extract_patches(a, c, win), nxt, pos[0])
+    same(tm, [lk.extract_patches(nxt[s], pos[0][s], win) for s in range(n)])
+    ref = one_launch(lambda t, gx, gy, p, q: lk.refine_template(
+        pyr0[0][0], t, gx, gy, p, q, win, 30, 0.01, 2.5), *tm, pts, pos[1])
+    same(ref, [lk.refine_template(pyr0[0][0], *(t[s] for t in tm), pts[s], pos[1][s], win,
+                                  30, 0.01, 2.5) for s in range(n)])
     torch.cuda.synchronize()

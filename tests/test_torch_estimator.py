@@ -17,10 +17,10 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tests._torch_parity import F64, t64, tonp
+from tests._torch_parity import F64, example_state, t64, tonp
 
 from mobile_slam_tpu.engine import estimator as jest
-from mobile_slam_tpu.engine.example import make_example_state, tiny_config
+from mobile_slam_tpu.engine.example import tiny_config
 from mobile_slam_tpu.factors.imu_factor import sqrt_info_from_cov as jsqrt_info
 from mobile_slam_tpu.imu import preintegration as jpre
 from mobile_slam_tpu.models.state import eligible_mask as jelig
@@ -39,7 +39,7 @@ POSE_TOL = 1e-6
 def example():
     cfg = tiny_config()
     jp = jest.make_params(cfg, jnp.float64)
-    st, inp = make_example_state(cfg, jp, jnp.float64)
+    st, inp = example_state(cfg, jp, jnp.float64)
     return cfg, jp, st, inp
 
 

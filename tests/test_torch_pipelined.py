@@ -24,13 +24,13 @@ import pytest
 
 import jax.numpy as jnp
 
-from tests._torch_parity import F64, tonp
+from tests._torch_parity import F64, example_state, tonp
 
 from mobile_slam_tpu.config import (CameraConfig, EstimatorConfig, TrackerConfig,
                                     VIOConfig)
 from mobile_slam_tpu.engine import estimator as jest
 from mobile_slam_tpu.engine import vio_engine as jvio
-from mobile_slam_tpu.engine.example import make_example_state, tiny_config
+from mobile_slam_tpu.engine.example import tiny_config
 from mobile_slam_tpu_torch import convert
 from mobile_slam_tpu_torch.engine import checkpoint as ckpt
 from mobile_slam_tpu_torch.engine import example as texample
@@ -194,7 +194,7 @@ def test_measure_device_step(both_pipelined):
 def test_map_points_match_reference():
     cfg = tiny_config()
     jp = jest.make_params(cfg, jnp.float64)
-    jstate, _ = make_example_state(cfg, jp, jnp.float64)
+    jstate, _ = example_state(cfg, jp, jnp.float64)
     # Solve every landmark at a depth off the initial one, some behind.
     rng = np.random.default_rng(4)
     n = jstate.table.depth.shape[0]

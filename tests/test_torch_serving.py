@@ -208,6 +208,10 @@ def test_imu_override_matches_reference(interpret_mode, monkeypatch):
     jcfg = dataclasses.replace(cfg, tracker=dataclasses.replace(cfg.tracker,
                                                                 use_pallas=True))
     jeng = jvio.VIOEngine(jcfg, jnp.float64)
+    # Its tracker state typed as its tracker step returns it (float32 points,
+    # zeros either way), so that the step compiles once.
+    jeng.tracker_state = jeng.tracker_state._replace(
+        pts=jeng.tracker_state.pts.astype(jnp.float32))
     teng = VIOEngine(cfg, device="cpu", dtype=torch.float64)
     draws, key = [], jax.random.PRNGKey(0)      # the reference engine's key
     detect = tvio.trk.detect_and_track

@@ -18,11 +18,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tests._torch_parity import F64, ransac_draws, t64, tonp
+from tests._torch_parity import F64, example_state, ransac_draws, t64, tonp
 from tests.test_torch_tracker import jax_tracker, tracker_sequence
 
 from mobile_slam_tpu.engine import estimator as jest
-from mobile_slam_tpu.engine.example import make_example_state, tiny_config
+from mobile_slam_tpu.engine.example import tiny_config
 from mobile_slam_tpu.ops import lk_pallas
 from mobile_slam_tpu_torch import convert
 from mobile_slam_tpu_torch.engine import estimator as est
@@ -51,7 +51,7 @@ def test_one_tracking_frame_matches_reference():
         tst_j, _ = step_j(tst_j, jnp.asarray(img), jnp.asarray(0.05 * k),
                           key=jax.random.PRNGKey(k))
     jp = jest.make_params(cfg, jnp.float64)
-    est_j, inp_j = make_example_state(cfg, jp, jnp.float64)
+    est_j, inp_j = example_state(cfg, jp, jnp.float64)
 
     ps = convert.static_params(tonp(jp), dtype=F64, device="cpu")
     est_t = convert.estimator_state(tonp(est_j), dtype=F64, device="cpu")

@@ -92,8 +92,12 @@ def jax_tracker(cfg):
     cam = jax_camera(cfg.camera, dtype=jnp.float64)
     step = jax.jit(functools.partial(jtrk.detect_and_track, camera=cam, cfg=tcfg,
                                      focal=cfg.camera.focal_length))
-    return step, jtrk.init_tracker_state(tcfg, cfg.camera.height, cfg.camera.width,
-                                         jnp.float64)
+    state = jtrk.init_tracker_state(tcfg, cfg.camera.height, cfg.camera.width, jnp.float64)
+    # Typed as the step returns it (points in float32, as its kernels
+    # compute them; a weakly typed timestamp), so that the second frame does
+    # not compile the step again. Both hold zeros here.
+    return step, state._replace(pts=state.pts.astype(jnp.float32),
+                                prev_ts=jnp.asarray(0.0))
 
 
 def compare_outputs(out_j, out_t):
