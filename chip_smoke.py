@@ -86,13 +86,30 @@ Phases, each printed as it runs:
    the bench's feature-path state after initialization, each sequence fed
    the feature chunks with its own seeded pixel noise through
    make_batched_chunked_step, held against its own make_chunked_step run
-   over the first chunk (first 3 frames within 1e-4 m with the same
-   keyframe flags, every frame finite and within 0.05 m).
+   over the first 25 frames (first 3 frames within 1e-4 m with the same
+   keyframe flags at float64, every frame finite and within 0.05 m).
+
+8. the phone entry point (mobile_slam_tpu_torch/web/gateway.py): K1, K2
+   and K3 at the gateway's mobile_default shapes (two frames of phase 8's
+   sequence, 640x480 pinhole, 3 pyramid images, window 15 through the
+   run-time-window body, 160 slots) against their plain versions and
+   timed and bounded as in phase 2; then the gateway on the card, served
+   in a thread on 127.0.0.1 and driven by the port's WebSocket client over
+   a 4 s phone sequence (the profile's 30 fps, 200 Hz IMU / 7 = 28.6 fps,
+   115 frames; io/synthetic.py's noise, seed 7; 15 ms camera-IMU offset):
+   configure (mobile_default, the camera looking forward, estimate_td on),
+   binary IMU batches and frames, then reset, get_map_points, dispose.
+   Checks: no error message, TRACKING, at least half the frames after it
+   ok, every pose SE(3), map points with every 10th frame while tracking,
+   none after reset, ATE Sim3 < 0.05 m, td finite and within +-td_max on
+   every tracking frame, K1/K2/K3 at 1/2/2 launches per frame, the
+   handler and server threads ended; prints td, proc_ms, the session's
+   fps and the host syncs of a few tracking frames.
 
 Prints a JSON line of per-kernel results ("launches": phase 6's pipelined
-run; phases 3, 4 and 7's beside it, "batched_*" the B = 4 launch of phase
-7), the nvidia-smi line, and as the last line {"ok": true, "device":
-{...}}. Any failed check raises.
+run; phases 3, 4, 7 and 8's beside it, "batched_*" the B = 4 launch of
+phase 7, "mobile_*" phase 8's kernel timings), the nvidia-smi line, and
+as the last line {"ok": true, "device": {...}}. Any failed check raises.
 """
 
 import json
@@ -149,8 +166,22 @@ FLEET_CHUNKS = 2    # fleet chunks of CHUNK frames
 FLEET_CHECK_FRAMES = 3  # fleet frames held to FLEET_POS_TOL of the single run
 FLEET_POS_TOL = 1e-4    # m; later frames only to the ATE bar (the bench ATE is
                         # chaotic in the tracked positions, PERF.md)
-FLEET_CHUNK_TOL = 0.05  # m, feature fleet against its single run over a chunk
+FLEET_CHUNK_TOL = 0.05  # m, feature fleet against its single run over its frames
+FLEET_SINGLE_FRAMES = 25  # frames of each feature sequence's single run (half a
+                          # chunk since phase 8 came: keeps the smoke under ~800 s)
 FLEET_PIXEL_NOISE = 0.25  # px, feature fleet (the bench's pixel noise)
+MOBILE_PROFILE = "mobile_default"  # the gateway's phone profile (window 15, 2 levels)
+MOBILE_SECONDS = 4.0    # phase 8's sequence
+MOBILE_CAM_RATE = 30.0  # the profile's phone rate (200 Hz IMU / 7: 28.6 fps, 115 frames)
+MOBILE_TD = 0.015       # s, the camera-IMU offset phase 8's sequence carries
+MOBILE_PERIOD_MS = 1e3 / 30.0  # a 30 fps phone's frame period
+# The client's camera mount: the camera looks along the body's forward axis,
+# as in tests/test_vio_gateway.py's configure. The profile's portrait default
+# looks along -z of the body, at the simulated room's floor (phase 8 prints
+# how few landmarks it would see).
+MOBILE_R_IC = (0.0, 0.0, 1.0, -1.0, 0.0, 0.0, 0.0, -1.0, 0.0)
+MOBILE_SYNC_FRAMES = 5  # tracking frames whose host syncs are counted
+MOBILE_MIN_OK = 0.5     # share of the frames after initialization that must be ok
 # Published H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM3 bytes/s
 # and float32 outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -304,15 +335,17 @@ def phase_device() -> str:
     return smi[0]
 
 
-def bench_pair(data, cam, cfg, sim, example, frames=(20, 21)):
-    """Two consecutive bench frames on the card, as the tracker sees them:
-    (img0, pyr0, img1, pyr1, pts, valid), the 160 slots from the corner
-    detector on the first."""
+def bench_pair(data, cam, cfg, sim, example, frames=(20, 21), r_ic=None):
+    """Two consecutive frames of the sequence on the card, as the tracker
+    sees them: (img0, pyr0, img1, pyr1, pts, valid), the max_points slots
+    from the corner detector on the first (the bench's camera mount unless
+    ``r_ic`` is given)."""
     from mobile_slam_tpu_torch.frontend import tracker as trk
     from mobile_slam_tpu_torch.ops import corners
 
     tcfg = cfg.tracker
-    frames = [torch.as_tensor(sim.render_frame(data, fi, cam, example.R_IC,
+    r_ic = example.R_IC if r_ic is None else r_ic
+    frames = [torch.as_tensor(sim.render_frame(data, fi, cam, r_ic,
                                                cfg.camera.t_ic_vec),
                               dtype=torch.float32, device="cuda") for fi in frames]
     img0, pyr0, resp0 = trk.preprocess_frame(frames[0], tcfg)
@@ -449,15 +482,17 @@ def _step_ms(run, iters=(8, 24)):
     return step, lo - iters[0] * step
 
 
-def phase_kernels(lk, pair, cfg):
-    """K1-K3 against their plain versions at main-path shapes."""
+def phase_kernels(lk, pair, cfg, tag="phase 2", second_cases=True):
+    """K1-K3 against their plain versions at the shapes of ``cfg``'s path
+    (phase 2: the bench's; phase 8: the gateway's mobile profile), then the
+    second set when ``second_cases``."""
     tcfg = cfg.tracker
     win = tcfg.lk_window_size
     img0, pyr0, img1, pyr1, pts, valid = pair
     active = valid.clone()
     active[::16] = False
     n_live = int(active.sum())
-    print(f"[phase 2] {pts.shape[0]} slots, {n_live} active, levels "
+    print(f"[{tag}] {pts.shape[0]} slots, {n_live} active, levels "
           f"{[tuple(p.shape) for p in pyr0]}", flush=True)
     params = lk.LKParams(window=win, levels=tcfg.lk_pyramid_levels,
                          iters=tcfg.lk_iterations, eps=tcfg.lk_eps)
@@ -568,7 +603,7 @@ def phase_kernels(lk, pair, cfg):
             image_bytes_whole=_nbytes(img),
             **_bound(k2_read + 3 * n_act * win * win * 4 + _nbytes(start, ok_k, pk, okk, rk),
                      flops))
-        print(f"[phase 2] K2 {name}: iters {iters} max_shift {max_shift} "
+        print(f"[{tag}] K2 {name}: iters {iters} max_shift {max_shift} "
               f"ok {int(m.sum())} pos diff {dpos:.3g} px resid diff {dres:.3g} "
               f"wrapper {times[name]['ms']:.4f} ms (custom op {times[name]['op_ms']:.4f} ms) "
               f"launch (graph) "
@@ -582,21 +617,23 @@ def phase_kernels(lk, pair, cfg):
         **{f"{k}_anchor": v for k, v in times["anchor"].items()})
     for name in ("track_pyramidal", "extract_patches"):
         r = results[name]
-        print(f"[phase 2] {name}: max err {r['max_abs_err']:.3g} wrapper "
+        print(f"[{tag}] {name}: max err {r['max_abs_err']:.3g} wrapper "
               f"{r['ms']:.4f} ms (through its custom op {r['op_ms']:.4f} ms) launch "
               f"(graph) {r['launch_ms']:.4f} ms plain "
               f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.5f} ms ({r['bound_by']})",
               flush=True)
     r = results["track_pyramidal"]
-    print(f"[phase 2] K1 point-iterations per level (coarse first): "
+    print(f"[{tag}] K1 point-iterations per level (coarse first): "
           f"{r['iterations_per_level']}, sum {r['chain_steps_sum']}, slowest point "
           f"{r['chain_steps_max']} steps over all levels; one step {r['step_ms']:.6f} ms, "
           f"fixed part (templates, launch) {r['fixed_ms']:.6f} ms, chain floor "
           f"{r['chain_floor_ms']:.5f} ms", flush=True)
+    if not second_cases:
+        return results
     second = [run_second_case(lk, case) for case in second_set("cuda")]
     torch.cuda.synchronize()
     for c in second:
-        print(f"[phase 2] second set [{c['case']}]: {c['live']} live slots; K3 err "
+        print(f"[{tag}] second set [{c['case']}]: {c['live']} live slots; K3 err "
               f"{c['k3_err']:.3g}; K1 ok "
               f"{c['k1_ok']} err {c['k1_err_px']:.3g} px, slowest point "
               f"{c['k1_steps_max']} steps; K2 ok {c['k2_ok']} err "
@@ -1452,7 +1489,8 @@ def phase_feature_fleet(cfg, data, sim, serve):
     """FEATURE_FLEET_B copies of the bench's feature-path state after
     initialization, each fed the bench's feature chunks with its own seeded
     pixel noise, through make_batched_chunked_step; each sequence held
-    against its own make_chunked_step run over the first chunk."""
+    against its own make_chunked_step run over the first FLEET_SINGLE_FRAMES
+    frames."""
     from mobile_slam_tpu_torch.engine import chunked
     from mobile_slam_tpu_torch.engine.vio_engine import Status, VIOEngine
     from mobile_slam_tpu_torch.parallel import batch
@@ -1501,7 +1539,8 @@ def phase_feature_fleet(cfg, data, sim, serve):
     for s in range(FEATURE_FLEET_B):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, out = single(engine.state, chunked.stack_frame_inputs(seq_inputs[s][:CHUNK]))
+        _, out = single(engine.state,
+                        chunked.stack_frame_inputs(seq_inputs[s][:FLEET_SINGLE_FRAMES]))
         out = tuple(x.cpu().numpy() for x in out)
         t_single += time.perf_counter() - t0
         single_out.append(out)
@@ -1521,16 +1560,17 @@ def phase_feature_fleet(cfg, data, sim, serve):
     _check(bool(np.isfinite(p).all()), "feature fleet: non-finite poses")
     diffs, first, same_kf = [], [], []
     for s, (p_s, _, ok_s, kf_s) in enumerate(single_out):
-        d = np.linalg.norm(p[:CHUNK, s] - p_s, axis=-1)
+        d = np.linalg.norm(p[:FLEET_SINGLE_FRAMES, s] - p_s, axis=-1)
         diffs.append(float(d.max()))
         first.append(float(d[:check].max()))
         same_kf.append(bool((kf[:check, s] == kf_s[:check]).all()))
         _check(bool(np.isfinite(p_s).all()) and diffs[-1] < FLEET_CHUNK_TOL,
-               f"feature fleet sequence {s}: {diffs[-1]} m from its single run over the chunk")
+               f"feature fleet sequence {s}: {diffs[-1]} m from its single run over "
+               f"{FLEET_SINGLE_FRAMES} frames")
     _check(len({tuple(np.round(p[-1, s], 6)) for s in range(FEATURE_FLEET_B)})
            == FEATURE_FLEET_B, "feature fleet: two sequences ended at the same pose")
     fps = FEATURE_FLEET_B * CHUNK / walls[0]
-    single_fps = FEATURE_FLEET_B * CHUNK / t_single
+    single_fps = FEATURE_FLEET_B * FLEET_SINGLE_FRAMES / t_single
     out = dict(fps=fps, fps_per_seq=fps / FEATURE_FLEET_B, chunk_walls_s=walls,
                single_chunked_fps=single_fps, max_diff=max(diffs),
                first_frames_diff_f64=max(diffs64), first_frames_diff_f32=max(first),
@@ -1541,8 +1581,174 @@ def phase_feature_fleet(cfg, data, sim, serve):
           f"{single_fps:.3f} fps; phase 4 chunked (image path) fps {serve['chunked_fps']:.3f}; "
           f"first {check} frames vs each sequence's single run: float64 {max(diffs64):.3g} m "
           f"(same keyframe flags), float32 {max(first):.3g} m (same keyframe flags "
-          f"{same_kf}); largest float32 difference over the chunk {max(diffs):.3g} m; "
+          f"{same_kf}); largest float32 difference over {FLEET_SINGLE_FRAMES} frames "
+          f"{max(diffs):.3g} m; "
           f"phase 7 feature fleet took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def mobile_sequence(sim, make_camera):
+    """Phase 8's phone session: the configure overrides, the port's config
+    they make (the gateway's build_config), the camera, and the simulated
+    sequence (io/synthetic.py's noise, seed 7, the profile's phone rate,
+    MOBILE_TD of camera-IMU offset). Also the median landmarks in view per
+    frame under the profile's portrait default mount."""
+    import dataclasses
+
+    from mobile_slam_tpu_torch.io import synthetic
+    from mobile_slam_tpu_torch.web import gateway
+
+    overrides = {"camera": {"r_ic": list(MOBILE_R_IC)},
+                 "estimator": {"estimate_td": True}}
+    cfg = gateway.build_config(MOBILE_PROFILE, overrides)
+    cam = make_camera(cfg.camera, dtype=torch.float64, device="cpu")
+    scfg = dataclasses.replace(synthetic.sim_config(MOBILE_SECONDS, seed=7, noise=True),
+                               cam_rate=MOBILE_CAM_RATE, cam_time_offset=MOBILE_TD)
+    data = sim.simulate(scfg, cam, cfg.camera.r_ic_mat, cfg.camera.t_ic_vec)
+    portrait = gateway.build_config(MOBILE_PROFILE, {}).camera
+    seen = sim.simulate(scfg, cam, portrait.r_ic_mat, portrait.t_ic_vec)
+    in_view = float(np.median([len(f["ids"]) for f in seen.frames]))
+    return overrides, cfg, cam, data, in_view
+
+
+def _recv_json(conn, want_type):
+    """The next text message of ``want_type``; fails on an error message or
+    on any other message in between."""
+    is_text, payload = conn.recv()
+    _check(payload is not None and is_text, "the gateway closed the connection")
+    msg = json.loads(payload)
+    _check(msg.get("type") != "error", f"gateway error: {msg.get('message')}")
+    _check(msg.get("type") == want_type, f"expected {want_type}, got {msg}")
+    return msg
+
+
+def phase_gateway(lk, overrides, cfg, cam, data, sim, in_view, device="cuda"):
+    """The port's WebSocket gateway on ``device``, served in a thread on
+    127.0.0.1 and driven by the port's ws client: configure (MOBILE_PROFILE,
+    td on), the sequence's IMU batches and frames as binary messages, then
+    reset, get_map_points and dispose."""
+    import socket
+    import struct
+    import threading
+
+    from mobile_slam_tpu_torch.eval.evaluator import compute_ate
+    from mobile_slam_tpu_torch.probes.sync_sites import SyncSites
+    from mobile_slam_tpu_torch.web import gateway, ws
+
+    cuda = torch.device(device).type == "cuda"
+    r_ic, t_ic = cfg.camera.r_ic_mat, cfg.camera.t_ic_vec
+    frames = [sim.render_frame(data, fi, cam, r_ic, t_ic) for fi in range(len(data.frames))]
+    imu = np.ascontiguousarray(np.column_stack([data.imu_ts, data.imu_acc, data.imu_gyr]),
+                               "<f8")
+    sock = socket.socket()
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    sock.bind(("127.0.0.1", 0))
+    sessions, ready = [], threading.Event()
+    server = threading.Thread(target=gateway.serve, args=(0, ready, sock),
+                              kwargs=dict(device=device, sessions=sessions), daemon=True)
+    server.start()
+    _check(ready.wait(30), "the gateway did not start")
+    conn = ws.connect("127.0.0.1", sock.getsockname()[1])
+    conn.send(json.dumps({"type": "configure", "profile": MOBILE_PROFILE,
+                          "config": overrides}))
+    msg = _recv_json(conn, "configured")
+    session = sessions[0]
+    _check(msg["width"] == 640 and msg["height"] == 480, f"configured {msg}")
+    _check(session.engine.device.type == torch.device(device).type,
+           f"the session's engine is on {session.engine.device}")
+    td_max = cfg.estimator.td_max
+
+    lk.reset_launch_counts()
+    rows, est_ts, est_p, syncs, n_maps, want_maps = [], [], [], [], 0, 0
+    imu_i, init, t0 = 0, None, time.perf_counter()
+    for fi, ts in enumerate(data.cam_ts):
+        j = int(np.searchsorted(data.imu_ts, ts + 1e-9))
+        if j > imu_i:
+            conn.send(struct.pack("<BBH", gateway.MSG_IMU, 0, j - imu_i) + imu[imu_i:j].tobytes())
+            imu_i = j
+        h, w = frames[fi].shape
+        counted = init is not None and len(syncs) < MOBILE_SYNC_FRAMES and fi >= init + 10
+        sc = SyncSites().__enter__() if counted and cuda else None
+        conn.send(struct.pack("<BBHHHd", gateway.MSG_FRAME, 0, w, h, 0, ts)
+                  + frames[fi].tobytes())
+        res = _recv_json(conn, "result")
+        if sc is not None:
+            sc.__exit__(None, None, None)
+            syncs.append(sum(sc.sites.values()))
+        td = session.last_result.td
+        rows.append((fi, res["status"], res["ok"], res["proc_ms"], td))
+        if init is None and res["status"] == "TRACKING":
+            init = fi
+        if res["ok"]:
+            P = np.asarray(res["pose"]).reshape(4, 4)
+            _check(np.abs(P[:3, :3] @ P[:3, :3].T - np.eye(3)).max() < 1e-4
+                   and np.linalg.det(P[:3, :3]) > 0 and np.array_equal(P[3], [0, 0, 0, 1]),
+                   f"frame {fi}: the pose is not SE(3)")
+            _check(td is not None and np.isfinite(td) and abs(td) <= td_max,
+                   f"frame {fi}: td {td}")
+            # The pose is world-from-camera; the body sits at the camera
+            # (t_ic = 0), as the ground truth's positions do.
+            est_ts.append(res["ts"])
+            est_p.append(P[:3, 3] - P[:3, :3] @ r_ic.T @ t_ic)
+        if res["ok"] and (fi + 1) % gateway.MAP_POINTS_EVERY == 0:
+            want_maps += 1
+            pts = np.asarray(_recv_json(conn, "map_points")["points"])
+            _check(len(pts) > 0 and np.isfinite(pts).all(), f"frame {fi}: map points {pts.shape}")
+            n_maps += 1
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(lk.launch_counts)
+    conn.send(json.dumps({"type": "reset"}))
+    _recv_json(conn, "reset_done")
+    conn.send(json.dumps({"type": "get_map_points"}))
+    _check(_recv_json(conn, "map_points")["points"] == [], "reset left map points")
+    conn.send(json.dumps({"type": "dispose"}))
+    _recv_json(conn, "disposed")
+    conn.close()
+    session.thread.join(60)
+    sock.shutdown(socket.SHUT_RDWR)
+    sock.close()
+    server.join(60)
+    _check(not session.thread.is_alive() and not server.is_alive(),
+           "the gateway's threads did not end")
+
+    n = len(rows)
+    _check(init is not None, "the session never reached TRACKING")
+    after = [r for r in rows if r[0] > init]
+    n_ok = sum(r[2] for r in after)
+    _check(n_ok >= MOBILE_MIN_OK * len(after), f"{n_ok} of {len(after)} frames after "
+           f"initialization ok")
+    _check(n_maps == want_maps and n_maps > 0, f"{n_maps} map_points messages")
+    if cuda:
+        for k, per in LK_PER_FRAME.items():
+            _check(counts[k] == per * n, f"{k}: {counts[k]} launches over {n} frames")
+    ate = compute_ate(np.asarray(est_ts), np.asarray(est_p), data.cam_ts, data.gt_p)
+    _check(ate.rmse < ATE_TOL, f"ATE {ate.rmse} m")
+    proc = np.asarray([r[3] for r in rows if r[0] > init and r[2]])
+    tds = [(r[0], r[4]) for r in rows if r[4] is not None]
+    out = dict(counts=counts, frames=n, init_frame=init, ok_after_init=n_ok,
+               ate=float(ate.rmse), n_poses=len(est_p), td_final=tds[-1][1],
+               proc_ms_median=float(np.median(proc)),
+               proc_ms_p90=float(np.percentile(proc, 90)), fps=n / wall,
+               syncs_per_frame=float(np.mean(syncs)) if syncs else None,
+               map_messages=n_maps, portrait_in_view=in_view)
+    print(f"[phase 8] sequence: {n} frames at {1.0 / np.diff(data.cam_ts).mean():.2f} fps, "
+          f"{MOBILE_TD * 1e3:.1f} ms camera-IMU offset; landmarks in view per frame "
+          f"(median) {np.median([len(f['ids']) for f in data.frames]):.0f} with the "
+          f"client's forward mount, {in_view:.0f} with the profile's portrait default",
+          flush=True)
+    print(f"[phase 8] td every 10 frames (ms): "
+          f"{[(fi, round(1e3 * td, 3)) for fi, td in tds[::10]]}; final "
+          f"{1e3 * out['td_final']:.3f} ms against {MOBILE_TD * 1e3:.1f} ms injected; "
+          f"largest |td| {1e3 * max(abs(td) for _, td in tds):.3f} ms", flush=True)
+    print(f"[phase 8] TRACKING at frame {init}; {n_ok} of {len(after)} frames after it ok; "
+          f"ATE sim3 rmse {ate.rmse:.4f} m over {ate.num_pairs} pairs; {n_maps} map_points "
+          f"messages; proc_ms median {out['proc_ms_median']:.2f} p90 {out['proc_ms_p90']:.2f} "
+          f"against the {MOBILE_PERIOD_MS:.1f} ms period of a 30 fps phone; session "
+          f"{out['fps']:.3f} fps ({wall:.1f} s for {n} frames); host syncs per tracking "
+          f"frame {syncs}; launches {counts} ({', '.join(f'{k} {counts[k] / n:.2f}' for k in LK_PER_FRAME)} per frame)",
+          flush=True)
     return out
 
 
@@ -1595,10 +1801,16 @@ def main() -> int:
     fleet_k = phase_fleet_kernels(lk, _fleet_pairs(data, cam, cfg, sim, example, pair), cfg)
     fleet = phase_image_fleet(lk, cfg, sim, example, make_camera, serve)
     ffleet = phase_feature_fleet(cfg, data, sim, serve)
+    m_over, m_cfg, m_cam, m_data, m_in_view = mobile_sequence(sim, make_camera)
+    m_pair = bench_pair(m_data, m_cam, m_cfg, sim, example, r_ic=m_cfg.camera.r_ic_mat)
+    mobile_k = phase_kernels(lk, m_pair, m_cfg, tag="phase 8", second_cases=False)
+    gate = phase_gateway(lk, m_over, m_cfg, m_cam, m_data, sim, m_in_view)
     for k in LK_PER_FRAME:
         kernels[k].update(launches=cli_run["counts"][k], launches_serving=serve["counts"][k],
                           launches_streaming=stream["counts"][k],
-                          launches_fleet=fleet["counts"][k], **fleet_k[k])
+                          launches_fleet=fleet["counts"][k],
+                          launches_gateway=gate["counts"][k], **fleet_k[k],
+                          **{f"mobile_{n}": v for n, v in mobile_k[k].items()})
     print(f"[summary] streaming {stream['ms_per_frame']:.2f} ms per tracking frame, "
           f"{stream['syncs_per_frame']:.1f} host syncs per frame; chunked "
           f"{serve['ms_per_chunked_frame']:.2f} ms per frame, "
@@ -1611,8 +1823,10 @@ def main() -> int:
           f"sequence, {fleet['ms_per_fleet_frame']:.2f} ms per fleet frame, "
           f"{fleet['syncs_per_fleet_frame']:.2f} host syncs per fleet frame) against "
           f"chunked {serve['chunked_fps']:.3f} fps; feature fleet B={FEATURE_FLEET_B} "
-          f"{ffleet['fps']:.3f} fps against single-stream {ffleet['single_chunked_fps']:.3f}",
-          flush=True)
+          f"{ffleet['fps']:.3f} fps against single-stream {ffleet['single_chunked_fps']:.3f}; "
+          f"gateway ({MOBILE_PROFILE}, td on) {gate['fps']:.3f} fps, proc_ms median "
+          f"{gate['proc_ms_median']:.2f} p90 {gate['proc_ms_p90']:.2f}, ATE {gate['ate']:.4f} m, "
+          f"td {1e3 * gate['td_final']:.3f} ms against {1e3 * MOBILE_TD:.1f} ms", flush=True)
     _check("jax" not in sys.modules, "jax was imported")
     _check(not any(m == "mobile_slam_tpu" or m.startswith("mobile_slam_tpu.")
                    for m in sys.modules), "the JAX package was imported")

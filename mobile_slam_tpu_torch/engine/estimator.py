@@ -12,6 +12,11 @@ engine reads the flag once per frame and runs one branch); a bool tensor
 runs both branches and selects per element with ``torch.where``, as
 ``lax.cond`` does under ``jax.vmap`` (the fleet step, parallel/batch.py,
 which has one flag per sequence and no host read).
+
+With ``estimate_td`` on, ``solve_and_slide`` also moves the camera-IMU time
+offset td by the solver's scalar innovation, through the reference's
+observability-gated fusion; td then enters the marginalization and the
+slide at its fused value. Nothing reads td or its switch on the host.
 """
 
 from __future__ import annotations
@@ -73,6 +78,8 @@ class StepDiag(NamedTuple):
     pos_norm: torch.Tensor
     state_finite: torch.Tensor
     med_depth: torch.Tensor
+    td_info: torch.Tensor   # the window's td information (0 with td off)
+    td_gain: torch.Tensor   # the gated-fusion gain applied this step
 
 
 class StaticParams(NamedTuple):
@@ -87,12 +94,12 @@ class StaticParams(NamedTuple):
     td_enable: torch.Tensor
     td_max: torch.Tensor
     td_forget: torch.Tensor
+    td_fuse_info: torch.Tensor   # gated-fusion information constant C
+    td_gate_curv: torch.Tensor   # per-observation curvature knee of the gate
     td_rw_info: torch.Tensor
 
 
 def make_params(cfg: VIOConfig, *, dtype=torch.float32, device) -> StaticParams:
-    if cfg.estimator.estimate_td:
-        raise NotImplementedError("estimate_td is not ported yet")
     cam, est = cfg.camera, cfg.estimator
 
     def t(v):
@@ -106,8 +113,9 @@ def make_params(cfg: VIOConfig, *, dtype=torch.float32, device) -> StaticParams:
         min_parallax_norm=t(est.min_parallax / cam.focal_length),
         noise=pre.make_noise_cov(est.acc_n, est.gyr_n, est.acc_w, est.gyr_w,
                                  dtype=dtype, device=device),
-        td_enable=t(0.0), td_max=t(est.td_max), td_forget=t(est.td_prior_forget),
-        td_rw_info=t(est.td_rw_info),
+        td_enable=t(1.0 if est.estimate_td else 0.0), td_max=t(est.td_max),
+        td_forget=t(est.td_prior_forget), td_fuse_info=t(est.td_fuse_info),
+        td_gate_curv=t(est.td_gate_curv), td_rw_info=t(est.td_rw_info),
     )
 
 
@@ -312,6 +320,26 @@ def _cam_pose(p, q, ex_t, ex_q):
     return r_wb @ rot.quat_to_rot(ex_q), p + r_wb @ ex_t
 
 
+def _fuse_td(td, res: lm.SolveResult, params: StaticParams):
+    """Observability-gated td fusion -> (fused td, gain). The window's td
+    information I_w moves td by the gain I_w / (I_w + C), times an
+    excitation gate s^2 / (1 + s^2) on the mean per-observation curvature
+    (s = I_w / sum_w / knee): under locally constant velocity the time
+    shift is indistinguishable from along-track pose drift, and the gate
+    holds td there. Clamped to +-td_max; td unchanged when it is off."""
+    i_w = torch.clamp(res.td_info, min=0.0)
+    curv = i_w / torch.clamp(res.td_wsum, min=1.0)
+    sgate = curv / torch.clamp(params.td_gate_curv, min=1e-6)
+    gate = sgate * sgate / (1.0 + sgate * sgate)
+    denom = i_w + params.td_fuse_info
+    gain = gate * torch.where(denom > 0, i_w / torch.where(denom > 0, denom, 1.0),
+                              torch.zeros_like(i_w))
+    fused = torch.where(params.td_enable > 0,
+                        torch.clamp(td + gain * res.td_innov, -params.td_max,
+                                    params.td_max), td)
+    return fused, gain
+
+
 def solve_and_slide(state: EstimatorState, is_kf, params: StaticParams,
                     num_iterations: int):
     """Triangulate, optimize, marginalize, slide. Returns (state, body_p,
@@ -326,7 +354,7 @@ def solve_and_slide(state: EstimatorState, is_kf, params: StaticParams,
     w, table, res, culled_ids = lm.optimize(w, table, state.prior, params.ex_t,
                                             params.ex_q, sp, num_iterations,
                                             td0=state.td)
-    td = state.td
+    td, gain = _fuse_td(state.td, res, params)
     x_post = XState(p=w.p, q=w.q, v=w.v, ba=w.ba, bg=w.bg, lam=res.x.lam, td=td)
 
     def margin_old():
@@ -388,6 +416,8 @@ def solve_and_slide(state: EstimatorState, is_kf, params: StaticParams,
         state_finite=(torch.all(torch.isfinite(w.p)) & torch.all(torch.isfinite(w.v))
                       & torch.all(torch.isfinite(w.q))),
         med_depth=med_depth,
+        td_info=res.td_info,
+        td_gain=gain * params.td_enable,
     )
     new_state = state._replace(window=w2, table=table2, prior=prior, td=td)
     return new_state, w.p[W - 1], w.q[W - 1], diag

@@ -14,7 +14,7 @@ While TRACKING, a frame's input reaches the device as one float32 vector
 (``[ts, imu_cnt, imu_dt(M), imu_acc(3M), imu_gyr(3M)]``, plus ``[ids, obs,
 uv, vel, valid]`` on the feature path), staged in pinned host memory and
 copied with one ``non_blocking`` copy, and the solve's result comes back as
-one (13,) float32 vector. ``enable_pipelined_streaming`` returns the pose
+one (14,) float32 vector. ``enable_pipelined_streaming`` returns the pose
 of the frame ``depth`` calls back, whose copy to the host was started when
 it was dispatched. The keyframe flag is still read on the host each frame
 (``solve_and_slide`` picks its marginalization branch there), so a
@@ -65,10 +65,13 @@ class FrameResult(NamedTuple):
     # Timestamp the pose belongs to (set in pipelined streaming, where a
     # call returns the pose of an earlier frame; None = this call's frame).
     ts: Optional[float] = None
+    # The camera-IMU time offset (s) after this frame's solve (a tracking
+    # result only; it moves only with ``estimate_td`` on).
+    td: Optional[float] = None
 
 
 class _PendingFrame:
-    """An in-flight pipelined frame: its packed (13,) result, copied to a
+    """An in-flight pipelined frame: its packed (14,) result, copied to a
     pinned host tensor with ``non_blocking=True`` at dispatch, and a CUDA
     event recorded after the copy. On the CPU the copy is plain."""
 
@@ -312,15 +315,15 @@ class VIOEngine:
 
     def _solve(self, state, is_kf: bool):
         """solve_and_slide with its pose and every host-gate scalar packed
-        into one (13,) float32 vector: [p(3), q(4), vel, pos, med_depth,
-        finite, kf, n_trk]."""
+        into one (14,) float32 vector: [p(3), q(4), vel, pos, med_depth,
+        finite, kf, n_trk, td]."""
         state, p_out, q_out, diag = est.solve_and_slide(
             state, is_kf, self.params, self.cfg.estimator.num_iterations)
         f32 = torch.float32
         packed = torch.cat([p_out.to(f32), q_out.to(f32), torch.stack([
             diag.vel_norm.to(f32), diag.pos_norm.to(f32), diag.med_depth.to(f32),
             diag.state_finite.to(f32), diag.is_keyframe.to(f32),
-            diag.last_track_num.to(f32)])])
+            diag.last_track_num.to(f32), state.td.to(f32)])])
         return state, packed, diag
 
     # ------------------------------------------------------------------
@@ -612,6 +615,7 @@ class VIOEngine:
         finite = bool(v[10] > 0.5)
         is_kf = bool(v[11] > 0.5)
         n_feat = int(v[12])
+        td = float(v[13])
         if is_kf:
             self.window_ts[:-1] = self.window_ts[1:]
         else:
@@ -636,7 +640,7 @@ class VIOEngine:
         pose[:3, :3] = r_wb @ self.cfg.camera.r_ic_mat
         pose[:3, 3] = p_np + r_wb @ self.cfg.camera.t_ic_vec
         self._last_pose = pose
-        return FrameResult(True, pose, Status.TRACKING, n_feat, is_kf, ts=ts)
+        return FrameResult(True, pose, Status.TRACKING, n_feat, is_kf, ts=ts, td=td)
 
     # ------------------------------------------------------------------
     # Introspection

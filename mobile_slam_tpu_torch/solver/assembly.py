@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.func import jacfwd, vmap
+from torch.func import jacfwd, jvp, vmap
 
 from mobile_slam_tpu_torch.config import NUM_SLOTS
 from mobile_slam_tpu_torch.solver import layout
@@ -270,6 +270,22 @@ def build_normal_eqs(x: XState, table: FeatureTable, pre: Preintegration,
     cost_td = 0.5 * w_rw * r_td * r_td
     return NormalEqs(H_ss=H_ss, g_s=g_s, H_sl=H_sl, H_ll=H_ll, g_l=g_l,
                      cost=cost_imu + cost_proj + cost_prior + cost_td)
+
+
+def td_grad_hess(x: XState, table: FeatureTable, ex_t, ex_q,
+                 params: SolverParams, proj_valid):
+    """Gradient and Gauss-Newton curvature of the Cauchy-weighted projection
+    cost with respect to td alone, everything else held at ``x``: (g, h,
+    sum of the weights). The residual's derivative in td is a forward-mode
+    product (``torch.func.jvp``), so the function runs under ``vmap``."""
+    def res_of_td(td):
+        return _all_residuals(x._replace(td=td), table, ex_t, ex_q, params)
+
+    r, dr = jvp(res_of_td, (x.td,), (torch.ones_like(x.td),))
+    w = projection.cauchy_weight(r, params.cauchy_scale) * proj_valid.to(x.p.dtype)
+    g = torch.sum(w * torch.sum(r * dr, dim=-1))
+    h = torch.sum(w * torch.sum(dr * dr, dim=-1))
+    return g, h, torch.sum(w)
 
 
 def total_cost(x: XState, table: FeatureTable, pre: Preintegration,

@@ -3,9 +3,10 @@ twin of mobile_slam_tpu.solver.lm, default path: the dual-candidate step —
 a near-Gauss-Newton and a conservative Marquardt candidate, both solved and
 scored each iteration — over a fixed iteration count).
 
-After the loop: NaN rollback, the 4-dof gauge fix of frame 0, depth
-write-back and reprojection-error outlier culling. The decoupled td update
-(``td_grad_hess``) is not ported; ``estimate_td`` is rejected upstream.
+After the loop: NaN rollback, the 4-dof gauge fix of frame 0, the decoupled
+td innovation (a scalar Gauss-Newton step on the projection cost at the
+solved state, ``assembly.td_grad_hess``), depth write-back and
+reprojection-error outlier culling.
 """
 
 from __future__ import annotations
@@ -34,6 +35,12 @@ class SolveResult(NamedTuple):
     cost0: torch.Tensor
     cost: torch.Tensor
     accepted: torch.Tensor
+    # td observability: Gauss-Newton curvature of the projection cost in td
+    # at the solved state, the scalar step -g/h (0 with td off) and the
+    # total robust weight behind the curvature.
+    td_info: torch.Tensor
+    td_innov: torch.Tensor
+    td_wsum: torch.Tensor
 
 
 def _retract(x: XState, dx, dlam, lam_mask) -> XState:
@@ -107,7 +114,9 @@ def solve(x0: XState, table: FeatureTable, window: WindowState, prior: Prior,
         mu = torch.where(ok & use_a, torch.clamp(mu * 0.25, min=1e-12),
                          torch.where(ok, mu, torch.clamp(mu * 10.0, max=1e4)))
         n_acc = n_acc + ok.to(torch.int32)
-    return SolveResult(x=x, cost0=cost0, cost=cost, accepted=n_acc)
+    zero = torch.zeros((), dtype=dtype, device=x0.p.device)
+    return SolveResult(x=x, cost0=cost0, cost=cost, accepted=n_acc,
+                       td_info=zero, td_innov=zero, td_wsum=zero)
 
 
 def apply_gauge_fix(x: XState, p0_old, q0_old) -> XState:
@@ -146,13 +155,21 @@ def optimize(window: WindowState, table: FeatureTable, prior: Prior, ex_t,
     td = torch.where(params.td_enable > 0,
                      torch.clamp(x.td, -params.td_max, params.td_max), x0.td)
     x = apply_gauge_fix(x._replace(td=td), window.p[0], window.q[0])
+
+    proj_valid = assembly.proj_valid_mask(table)
+    g_td, h_td, wsum_td = assembly.td_grad_hess(x, table, ex_t, ex_q, params,
+                                                proj_valid)
+    innov = torch.where(h_td > 0, -g_td / torch.clamp(h_td, min=1e-6),
+                        torch.zeros_like(g_td))
+    innov = torch.where(torch.isfinite(innov), innov, torch.zeros_like(innov))
+    res = res._replace(td_info=h_td, td_innov=innov * params.td_enable,
+                       td_wsum=wsum_td)
     window = window._replace(p=x.p, q=x.q, v=x.v, ba=x.ba, bg=x.bg)
 
     new_depth = 1.0 / x.lam
     neg = new_depth < 0
     depth = torch.where(elig & ~neg, new_depth, table.depth)
 
-    proj_valid = assembly.proj_valid_mask(table)
     r_p = assembly._all_residuals(x, table, ex_t, ex_q, params)
     err = torch.linalg.vector_norm(r_p, dim=-1) * proj_valid
     n_obs = torch.clamp(torch.sum(proj_valid, dim=1), min=1)

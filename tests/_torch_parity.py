@@ -4,15 +4,39 @@ worker (the suite runs several pytest-xdist workers side by side)."""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+import pytest
 import torch
 
 import jax
 import jax.numpy as jnp
+from jax.experimental.compilation_cache import compilation_cache
 
 torch.set_num_threads(1)
 
 F64 = torch.float64
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# Git-ignored (.gitignore: .xla_cache/).
+COMPILE_CACHE = os.path.join(REPO, ".xla_cache", "torch_parity")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_compile_cache():
+    """JAX's persistent compilation cache for the length of one test module
+    that imports this fixture: the port's test files compile the same
+    reference programs (the tiny configuration's estimator step, the
+    feature-path engine, the example state, the trackers), and a program
+    that one file compiled loads from the cache in another, also in
+    another pytest-xdist worker. The executable is the same either way.
+    Switched off again after the module, so that other tests run with
+    JAX's defaults."""
+    compilation_cache.set_cache_dir(COMPILE_CACHE)
+    compilation_cache.reset_cache()
+    yield
+    compilation_cache.set_cache_dir(None)
+    compilation_cache.reset_cache()
 
 
 def tonp(tree):

@@ -24,7 +24,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tests._torch_parity import F64, example_state, tonp
+from tests._torch_parity import F64, example_state, reference_compile_cache, tonp  # noqa: F401
 from tests.test_checkpoint_resume import make_cfg
 
 from mobile_slam_tpu.engine import checkpoint as jckpt

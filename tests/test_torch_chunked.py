@@ -28,7 +28,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tests._torch_parity import F64, example_state, ransac_draws, t64, tonp
+from tests._torch_parity import (  # noqa: F401
+    F64, example_state, ransac_draws, reference_compile_cache, t64, tonp)
 from tests.test_torch_tracker import tracker_sequence
 
 from mobile_slam_tpu.engine import chunked as jchunked

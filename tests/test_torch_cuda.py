@@ -99,3 +99,44 @@ def test_lk_kernels_take_a_fleet_in_one_launch():
     same(ref, [lk.refine_template(pyr0[0][0], *(t[s] for t in tm), pts[s], pos[1][s], win,
                                   30, 0.01, 2.5) for s in range(n)])
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_lk_kernels_at_the_gateway_shapes():
+    """K1-K3 at the gateway's mobile profile: window 15 (the run-time-window
+    body) over 3 pyramid images of a 640x480 frame, 160 slots, against
+    their plain versions at the bars of chip_smoke.py phase 2 (K1/K2 0.02
+    px, K2 residual 0.05, K3 1e-3)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from mobile_slam_tpu_torch.ops import image as im
+    from mobile_slam_tpu_torch.ops import lk
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    base = torch.rand((1, 1, 122, 162), generator=gen, device="cuda") * 255
+    big = torch.nn.functional.interpolate(base, size=(488, 648), mode="bicubic",
+                                          align_corners=False)[0, 0]
+    img0, img1 = big[4:484, 4:644].contiguous(), big[2:482, 7:647].contiguous()
+    pyr0, pyr1 = im.build_pyramid(img0, 2), im.build_pyramid(img1, 2)
+    pts = torch.rand((160, 2), generator=gen, device="cuda") * torch.tensor(
+        [600.0, 440.0], device="cuda") + 20
+    act = torch.rand((160,), generator=gen, device="cuda") > 0.1
+    prm = lk.LKParams(window=15, levels=2, iters=20)
+    pos_k, ok_k = lk.track_pyramidal(pyr0, pyr1, pts, act, prm)
+    pos_p, ok_p = lk.track_pyramidal_ref(pyr0, pyr1, pts, act, prm)
+    both = ok_k & ok_p
+    assert int(both.sum()) > 80 and bool((ok_k == ok_p).all())
+    assert float((pos_k - pos_p)[both].norm(dim=-1).max()) < 0.02
+    tk = lk.extract_patches(img1, pos_p, 15)
+    tp = lk.extract_patches_ref(img1, pos_p, 15)
+    assert max(float((a - b).abs().max()) for a, b in zip(tk, tp)) < 1e-3
+    args = (img0, *tp, pos_p, both, 15, 20, 0.01, 2.5)
+    pk, okk, rk = lk.refine_template(*args)
+    pp, okp, rp = lk.refine_template_ref(*args)
+    m = okk & okp
+    assert int(m.sum()) > 80 and bool((okk == okp).all())
+    assert float((pk - pp)[m].norm(dim=-1).max()) < 0.02
+    assert float((rk - rp)[m].abs().max()) < 0.05
+    torch.cuda.synchronize()

@@ -17,7 +17,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tests._torch_parity import F64, example_state, t64, tonp
+from tests._torch_parity import F64, example_state, reference_compile_cache, t64, tonp  # noqa: F401
 
 from mobile_slam_tpu.engine import estimator as jest
 from mobile_slam_tpu.engine.example import tiny_config
@@ -33,6 +33,10 @@ from mobile_slam_tpu_torch.models.state import eligible_mask
 from mobile_slam_tpu_torch.solver import assembly
 
 POSE_TOL = 1e-6
+
+# The reference's sequential preintegration as one program: eagerly, its
+# scan compiles anew on every call; jitted, once per file.
+_jpreintegrate = jax.jit(jpre.preintegrate)
 
 
 @pytest.fixture(scope="module")
@@ -84,7 +88,7 @@ def test_preintegration_matches(cnt):
     noise_j = jpre.make_noise_cov(0.05, 0.004, 4e-5, 2e-6, dtype=jnp.float64)
     noise = pre.make_noise_cov(0.05, 0.004, 4e-5, 2e-6, dtype=F64, device="cpu")
     args_j = [jnp.asarray(x) for x in (acc0, gyr0, dt, acc, gyr)]
-    seq = jpre.preintegrate(*args_j, jnp.asarray(cnt), jnp.asarray(ba), jnp.asarray(bg), noise_j)
+    seq = _jpreintegrate(*args_j, jnp.asarray(cnt), jnp.asarray(ba), jnp.asarray(bg), noise_j)
     par = jpre.preintegrate_parallel(*args_j, jnp.asarray(cnt), jnp.asarray(ba),
                                      jnp.asarray(bg), noise_j)
     got = pre.preintegrate_parallel(*[t64(x) for x in (acc0, gyr0, dt, acc, gyr)],

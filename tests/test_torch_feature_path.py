@@ -25,7 +25,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tests._torch_parity import F64, t64, tonp
+from tests._torch_parity import F64, reference_compile_cache, t64, tonp  # noqa: F401
 
 from mobile_slam_tpu.config import (CameraConfig, EstimatorConfig, TrackerConfig,
                                     VIOConfig)

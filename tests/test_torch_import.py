@@ -37,14 +37,19 @@ def test_port_imports_without_jax_or_triton():
 
 
 @pytest.mark.parametrize("entry", ["VIOEngine", "ChunkedImageServer", "call_overhead.run",
-                                   "lk_pack_probe.run"])
+                                   "lk_pack_probe.run", "gateway.serve",
+                                   "gateway.ClientSession", "logging.device_trace"])
 def test_entry_points_default_to_the_card(entry):
     from mobile_slam_tpu_torch.engine.serving import ChunkedImageServer
     from mobile_slam_tpu_torch.engine.vio_engine import VIOEngine
     from mobile_slam_tpu_torch.probes import call_overhead, lk_pack_probe
+    from mobile_slam_tpu_torch.utils import logging
+    from mobile_slam_tpu_torch.web import gateway
 
     fn = {"VIOEngine": VIOEngine, "ChunkedImageServer": ChunkedImageServer,
-          "call_overhead.run": call_overhead.run, "lk_pack_probe.run": lk_pack_probe.run}[entry]
+          "call_overhead.run": call_overhead.run, "lk_pack_probe.run": lk_pack_probe.run,
+          "gateway.serve": gateway.serve, "gateway.ClientSession": gateway.ClientSession,
+          "logging.device_trace": logging.device_trace.__wrapped__}[entry]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 

@@ -16,7 +16,7 @@ import torch
 
 import jax.numpy as jnp
 
-from tests._torch_parity import shifted, texture
+from tests._torch_parity import reference_compile_cache, shifted, texture  # noqa: F401
 
 from mobile_slam_tpu.ops import lk_pallas
 from mobile_slam_tpu_torch.ops import image as im, lk

@@ -9,7 +9,7 @@ import torch
 
 import jax.numpy as jnp
 
-from tests._torch_parity import t64, texture
+from tests._torch_parity import reference_compile_cache, t64, texture  # noqa: F401
 
 from mobile_slam_tpu import config as cfgmod
 from mobile_slam_tpu.models.cameras.base import make_camera as jax_camera

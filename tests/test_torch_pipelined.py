@@ -24,7 +24,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from tests._torch_parity import F64, example_state, tonp
+from tests._torch_parity import F64, example_state, reference_compile_cache, tonp  # noqa: F401
 
 from mobile_slam_tpu.config import (CameraConfig, EstimatorConfig, TrackerConfig,
                                     VIOConfig)

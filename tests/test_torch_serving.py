@@ -18,7 +18,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tests._torch_parity import ransac_draws
+from tests._torch_parity import ransac_draws, reference_compile_cache  # noqa: F401
 from tests.test_torch_tracker import tracker_sequence
 
 from mobile_slam_tpu.engine import chunked as jchunked

@@ -45,6 +45,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from tests._torch_parity import reference_compile_cache  # noqa: F401
+
 from mobile_slam_tpu import config as jconfig
 from mobile_slam_tpu.engine import vio_engine as jvio
 from mobile_slam_tpu.engine import vio_system as jvs

@@ -19,7 +19,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tests._torch_parity import F64, ransac_draws, shifted, t64, texture, tonp
+from tests._torch_parity import (  # noqa: F401
+    F64, ransac_draws, reference_compile_cache, shifted, t64, texture, tonp)
 
 from mobile_slam_tpu.engine.example import tiny_config
 from mobile_slam_tpu.frontend import tracker as jtrk
