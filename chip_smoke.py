@@ -106,12 +106,38 @@ Phases, each printed as it runs:
    handler and server threads ended; prints td, proc_ms, the session's
    fps and the host syncs of a few tracking frames.
 
+9. the estimator's options, the other cameras and the landmark-sharded
+   step: (a) from phase 3's last tracking state, solve_and_slide (keyframe
+   branch, 8 LM iterations) at float64 under each arm (the default,
+   EARLY_EXIT_FTOL 0 and 1e-6, GREEDY_GN, BATCH_CANDIDATES, the dense-eigh
+   prior with and without RESTRICTED_SUPPORT, eigh triangulation): ftol 0
+   bit-equal to the default, ftol 1e-6 no more accepted steps and poses
+   within 1e-5, BATCH_CANDIDATES the same steps and poses within 1e-8,
+   GREEDY_GN's cost within 1.05x and poses within 1e-3; the dense margin-new
+   (eigen threshold at machine level) and the square-root one within 1e-6
+   as J0ᵀJ0 / J0ᵀr0, the restricted prior and the dense one within 1e-6, the
+   dense margin-old on the card and on the CPU within 1e-6 (the dense and
+   square-root margin-old part by more on this state: printed); then at
+   float32 each arm's ms per call (median of 10), host syncs per call and
+   LM iterations run; (b) F-RANSAC with LU and eigh hypotheses on phase 2's
+   bench pair (K1's tracks), the same draws: inliers, the inliers' median
+   epipolar distance and ms per call, and at float64 the card's result
+   against the CPU's (inliers equal, F within 1e-6); (c) a 4 s Mei sequence
+   (752x480, xi 0.95, io/synthetic.py's noise, seed 7) streamed through
+   VIOEngine on the card: TRACKING, ATE Sim3 < 0.05 m, K1/K2/K3 at 1/2/2
+   launches per frame; a Scaramuzza lift / project on the card against
+   float64 on the CPU; (d) parallel/tp_solver.tp_damped_step at world size
+   1 over NCCL against lm._solve_damped on the same equations (float64,
+   1e-9 relative).
+
 Prints a JSON line of per-kernel results ("launches": phase 6's pipelined
-run; phases 3, 4, 7 and 8's beside it, "batched_*" the B = 4 launch of
-phase 7, "mobile_*" phase 8's kernel timings), the nvidia-smi line, and
-as the last line {"ok": true, "device": {...}}. Any failed check raises.
+run; phases 3, 4, 7, 8 and 9's Mei run beside it, "batched_*" the B = 4
+launch of phase 7, "mobile_*" phase 8's kernel timings), the nvidia-smi
+line, and as the last line {"ok": true, "device": {...}}. Any failed check
+raises.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -182,6 +208,29 @@ MOBILE_PERIOD_MS = 1e3 / 30.0  # a 30 fps phone's frame period
 MOBILE_R_IC = (0.0, 0.0, 1.0, -1.0, 0.0, 0.0, 0.0, -1.0, 0.0)
 MOBILE_SYNC_FRAMES = 5  # tracking frames whose host syncs are counted
 MOBILE_MIN_OK = 0.5     # share of the frames after initialization that must be ok
+SOLVER_ITERS = 8        # phase 9: LM iterations per solve_and_slide (the budget of
+                        # the reference's early-exit tests)
+SOLVER_REPS = 10        # float32 calls timed per arm (median)
+FTOL_SMALL = 1e-6       # the function tolerance of Ceres' default
+FTOL_POSE_TOL = 1e-5    # tests/test_solver_early_exit.py's bars
+BATCH_POSE_TOL = 1e-8   # tests/test_solver_batch_candidates.py's bar (float64)
+GREEDY_POSE_TOL = 1e-3
+GREEDY_COST_RATIO = 1.05
+PRIOR_RTOL = 1e-6       # priors compared as J0ᵀJ0 and J0ᵀr0 (phase 9)
+RANSAC_SEED = 9         # phase 9's RANSAC draws
+RANSAC_F_TOL = 1e-6     # F, card float64 against CPU float64 (the CPU test's bar)
+MEI_SECONDS = 4.0       # phase 9's Mei sequence (81 frames)
+MEI_CAM = dict(model_type="MEI", width=752, height=480, focal_length=460.0,
+               fx=460.0, fy=459.0, cx=376.0, cy=240.0,
+               dist=(-0.01, 0.005, 1e-4, -2e-4), xi=0.95)  # tests/test_cameras.py MEI_CAM
+SCARAMUZZA_CAM = dict(model_type="SCARAMUZZA", width=512, height=512, focal_length=190.0,
+                      ocam_poly=(-190.0, 0.0, 1.0 / 380.0, 0.0, 1.0 / (8 * 190.0 ** 3)),
+                      ocam_center=(256.0, 256.0))  # tests/test_cameras.py TestScaramuzza
+SCARA_MAX_RHO = 300.0   # px, the range of its fitted inverse polynomial
+SCARA_F32_PX = 1e-3     # float32 on the card against float64 on the CPU
+SCARA_ROUND_TRIP_PX = 0.05  # the fitted inverse polynomial's error (tests/test_cameras.py)
+TP_MU = 1e-4            # the damping of phase 9's sharded step
+TP_RTOL = 1e-9
 # Published H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM3 bytes/s
 # and float32 outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -651,6 +700,14 @@ def phase_streaming(lk, data, cam, cfg, sim, example):
 
     engine = VIOEngine(cfg)
     _check(engine.device.type == "cuda", f"engine on {engine.device}")
+    # Phase 9 starts from the estimator state of the last tracking frame.
+    last_solve, solve = {}, engine._solve
+
+    def recorded_solve(state, is_kf):
+        last_solve["state"] = state
+        return solve(state, is_kf)
+
+    engine._solve = recorded_solve
     est_ts, est_p = [], []
     imu_i, init_frame, n_frames = 0, None, 0
     frame_ms, at_init, syncs = [], None, []
@@ -699,7 +756,8 @@ def phase_streaming(lk, data, cam, cfg, sim, example):
     _check(ate.rmse < ATE_TOL, f"ATE {ate.rmse} m")
     out = dict(counts=counts, init_frame=init_frame, ate=float(ate.rmse),
                ms_per_frame=float(np.median(frame_ms)),
-               syncs_per_frame=float(np.mean(syncs)))
+               syncs_per_frame=float(np.mean(syncs)),
+               solve_state=last_solve["state"], params=engine.params)
     print(f"[phase 3] init frame {init_frame}, {n_frames} frames, {len(est_p)} "
           f"poses, ATE sim3 rmse {ate.rmse:.4f} m over {ate.num_pairs} pairs, "
           f"median {out['ms_per_frame']:.2f} ms per tracking frame "
@@ -1284,15 +1342,21 @@ def phase_fleet_kernels(lk, pairs, cfg):
     return results
 
 
-def _to64(tree):
-    """A tree with every floating tensor in float64 (phase 7's parity runs);
-    other leaves as they are."""
+def _tree_map(fn, tree):
+    """``fn`` applied to every tensor of a tree of (named) tuples; other
+    leaves as they are."""
     if isinstance(tree, torch.Tensor):
-        return tree.double() if tree.is_floating_point() else tree
+        return fn(tree)
     if isinstance(tree, tuple):
-        fields = [_to64(x) for x in tree]
+        fields = [_tree_map(fn, x) for x in tree]
         return type(tree)(*fields) if hasattr(tree, "_fields") else tuple(fields)
     return tree
+
+
+def _to64(tree):
+    """A tree with every floating tensor in float64 (phases 7 and 9's parity
+    runs)."""
+    return _tree_map(lambda t: t.double() if t.is_floating_point() else t, tree)
 
 
 def _clone_gen(g: torch.Generator) -> torch.Generator:
@@ -1752,6 +1816,366 @@ def phase_gateway(lk, overrides, cfg, cam, data, sim, in_view, device="cuda"):
     return out
 
 
+@contextlib.contextmanager
+def _flags(settings):
+    """Set module globals ({(module, name): value}) and restore them."""
+    old = {key: getattr(*key) for key in settings}
+    try:
+        for (mod, name), val in settings.items():
+            setattr(mod, name, val)
+        yield
+    finally:
+        for (mod, name), val in old.items():
+            setattr(mod, name, val)
+
+
+def _solver_arms():
+    """Phase 9's arms: the options the JAX package's A/B harnesses flip."""
+    from mobile_slam_tpu_torch.factors import marginalization as marg
+    from mobile_slam_tpu_torch.frontend import feature_table as ft
+    from mobile_slam_tpu_torch.solver import lm
+
+    dense = {(marg, "SQRT_MARGIN_OLD"): False, (marg, "SQRT_MARGIN_NEW"): False}
+    return {
+        "default": {},
+        "early_exit_ftol=0": {(lm, "EARLY_EXIT_FTOL"): 0.0},
+        "early_exit_ftol=1e-6": {(lm, "EARLY_EXIT_FTOL"): FTOL_SMALL},
+        "greedy_gn": {(lm, "GREEDY_GN"): True},
+        "batch_candidates": {(lm, "BATCH_CANDIDATES"): True},
+        "dense_prior": dense,
+        "dense_prior_restricted": {**dense, (marg, "RESTRICTED_SUPPORT"): True},
+        "eigh_triangulation": {(ft, "ADJUGATE_TRIANGULATION"): False},
+    }
+
+
+def _prior_gaps(a, b):
+    """How far two priors part in information (QR and eigh row signs are not
+    unique), as tests/test_sqrt_marginalization.py compares them:
+    max |ΔJ0ᵀJ0| / max |J0ᵀJ0| and max |ΔJ0ᵀr0| / max |J0ᵀr0|."""
+    H_a, H_b = a.J0.T @ a.J0, b.J0.T @ b.J0
+    g_a, g_b = a.J0.T @ a.r0, b.J0.T @ b.r0
+    return (float((H_a - H_b).abs().max() / H_b.abs().max().clamp(min=1e-30)),
+            float((g_a - g_b).abs().max() / g_b.abs().max().clamp(min=1e-12)))
+
+
+def _linearization(stream, cfg, device):
+    """Phase 3's last tracking state in float64 on ``device`` as a solver
+    input: (x: the window with depths from triangulation, table, window,
+    prior, static params)."""
+    from mobile_slam_tpu_torch.engine import estimator as est
+    from mobile_slam_tpu_torch.frontend import feature_table as ft
+    from mobile_slam_tpu_torch.models.state import eligible_mask
+    from mobile_slam_tpu_torch.solver import assembly
+
+    st = _tree_map(lambda t: t.to(device), _to64(stream["solve_state"]))
+    ps = est.make_params(cfg, dtype=torch.float64, device=device)
+    w = st.window
+    table = ft.triangulate(st.table, w.p, w.q, ps.ex_t, ps.ex_q, ps.init_depth, td=st.td)
+    lam = torch.where(eligible_mask(table),
+                      1.0 / torch.where(table.depth > 0, table.depth, ps.init_depth),
+                      torch.ones_like(table.depth))
+    x = assembly.XState(p=w.p, q=w.q, v=w.v, ba=w.ba, bg=w.bg, lam=lam, td=st.td)
+    return x, table, w, st.prior, ps
+
+
+def _dense_margin_old(lin):
+    from mobile_slam_tpu_torch.engine import estimator as est
+    from mobile_slam_tpu_torch.factors import marginalization as marg
+    from mobile_slam_tpu_torch.factors.imu_factor import sqrt_info_from_cov
+
+    x, table, w, prior, ps = lin
+    with _flags({(marg, "SQRT_MARGIN_OLD"): False}):
+        return marg.marginalize_old(x, table, w, sqrt_info_from_cov(w.pre.cov[1:]), prior,
+                                    ps.ex_t, ps.ex_q, est.solver_params(ps))
+
+
+def phase_solver_arms(stream, cfg, device="cuda"):
+    """(a) solve_and_slide from phase 3's last tracking frame under each arm:
+    float64 checks, then float32 times, host syncs and LM iterations."""
+    from mobile_slam_tpu_torch.engine import estimator as est
+    from mobile_slam_tpu_torch.factors import marginalization as marg
+    from mobile_slam_tpu_torch.probes.sync_sites import SyncSites
+    from mobile_slam_tpu_torch.solver import lm
+
+    arms = _solver_arms()
+    st32, p32 = stream["solve_state"], stream["params"]
+    st64, p64 = _to64(st32), est.make_params(cfg, dtype=torch.float64, device=device)
+    runs = {}
+    for name, kv in arms.items():
+        with _flags(kv):
+            lm.reset_counts()
+            new, p, q, d = est.solve_and_slide(st64, True, p64, SOLVER_ITERS)
+            runs[name] = dict(p=p, q=q, cost=float(d.solver_cost), acc=int(d.accepted_steps),
+                              prior=new.prior, iters=lm.counts["iterations"])
+            if name == "default" or name.startswith("dense"):
+                runs[name]["prior_general"] = est.solve_and_slide(
+                    st64, False, p64, SOLVER_ITERS)[0].prior
+    base = runs["default"]
+
+    def dp(name):
+        r = runs[name]
+        return max(float((r["p"] - base["p"]).abs().max()),
+                   float((r["q"] - base["q"]).abs().max()))
+
+    z = runs["early_exit_ftol=0"]
+    _check(torch.equal(z["p"], base["p"]) and torch.equal(z["q"], base["q"])
+           and z["cost"] == base["cost"] and z["acc"] == base["acc"],
+           "EARLY_EXIT_FTOL = 0 is not bit-equal to the fixed loop")
+    f = runs["early_exit_ftol=1e-6"]
+    _check(f["acc"] <= base["acc"] and dp("early_exit_ftol=1e-6") <= FTOL_POSE_TOL,
+           f"EARLY_EXIT_FTOL 1e-6: {f['acc']} steps against {base['acc']}, "
+           f"poses {dp('early_exit_ftol=1e-6')}")
+    b = runs["batch_candidates"]
+    _check(b["acc"] == base["acc"] and dp("batch_candidates") <= BATCH_POSE_TOL,
+           f"BATCH_CANDIDATES: {b['acc']} steps, poses {dp('batch_candidates')}")
+    g = runs["greedy_gn"]
+    _check(g["cost"] <= GREEDY_COST_RATIO * base["cost"]
+           and dp("greedy_gn") <= GREEDY_POSE_TOL,
+           f"GREEDY_GN: cost {g['cost']} against {base['cost']}, poses {dp('greedy_gn')}")
+    # The priors. Dense and square-root margin-new agree once the dense
+    # path's eigen threshold is at machine level (the procedure of
+    # tests/test_sqrt_marginalization.py); RESTRICTED_SUPPORT changes
+    # nothing while the prior keeps to its support; the dense margin-old on
+    # the card is held against the same function on the CPU (on this state it
+    # parts from the square-root margin-old by more than roundoff: printed).
+    gaps = {name: _prior_gaps(runs[name]["prior"], base["prior"])
+            + _prior_gaps(runs[name]["prior_general"], base["prior_general"])
+            for name in ("dense_prior", "dense_prior_restricted")}
+    with _flags({**arms["dense_prior"], (marg, "REL_EIG_EPS"): 1e-13}):
+        gaps["dense margin-new, machine threshold"] = _prior_gaps(
+            est.solve_and_slide(st64, False, p64, SOLVER_ITERS)[0].prior,
+            base["prior_general"])
+    gaps["restricted against dense"] = (
+        _prior_gaps(runs["dense_prior_restricted"]["prior"], runs["dense_prior"]["prior"])
+        + _prior_gaps(runs["dense_prior_restricted"]["prior_general"],
+                      runs["dense_prior"]["prior_general"]))
+    lin = _linearization(stream, cfg, device)
+    gaps["dense margin-old, card against CPU"] = _prior_gaps(
+        _tree_map(torch.Tensor.cpu, _dense_margin_old(lin)),
+        _dense_margin_old(_tree_map(torch.Tensor.cpu, lin)))
+    for name in ("dense margin-new, machine threshold", "restricted against dense",
+                 "dense margin-old, card against CPU"):
+        _check(max(gaps[name]) <= PRIOR_RTOL, f"{name}: prior gaps {gaps[name]}")
+    _check(bool(torch.isfinite(runs["eigh_triangulation"]["p"]).all()),
+           "eigh triangulation: non-finite pose")
+    for name, r in runs.items():
+        print(f"[phase 9] float64 {name}: {r['acc']} accepted of {r['iters']} LM "
+              f"iterations, cost {r['cost']:.9g}, pose difference to the default "
+              f"{dp(name):.3e}" + (f", prior gaps to the square-root prior (keyframe "
+                                   f"J0ᵀJ0, J0ᵀr0; general J0ᵀJ0, J0ᵀr0) "
+                                   f"{['%.2e' % x for x in gaps[name]]}"
+                                   if name in gaps else ""), flush=True)
+    for name in ("dense margin-new, machine threshold", "restricted against dense",
+                 "dense margin-old, card against CPU"):
+        print(f"[phase 9] prior gaps (J0ᵀJ0, J0ᵀr0), {name}: "
+              f"{['%.2e' % x for x in gaps[name]]}", flush=True)
+
+    out = {}
+    for name, kv in arms.items():
+        with _flags(kv):
+            def call():
+                return est.solve_and_slide(st32, True, p32, SOLVER_ITERS)
+
+            call()
+            torch.cuda.synchronize()
+            with SyncSites() as sc:
+                call()
+                torch.cuda.synchronize()
+            lm.reset_counts()
+            ms = _time_ms(call, reps=SOLVER_REPS, warmup=1)
+            out[name] = dict(ms=ms, syncs=sum(sc.sites.values()),
+                             iterations=lm.counts["iterations"] / (SOLVER_REPS + 1),
+                             accepted=runs[name]["acc"])
+    for name, r in out.items():
+        print(f"[phase 9] float32 {name}: {r['ms']:.2f} ms per solve_and_slide "
+              f"({r['ms'] / out['default']['ms']:.3f}x the default), {r['syncs']} host "
+              f"syncs per call, {r['iterations']:.1f} LM iterations run", flush=True)
+    return out
+
+
+def phase_ransac(lk, pair, cfg, device="cuda"):
+    """(b) F-RANSAC with LU and eigh hypotheses on phase 2's bench pair (K1's
+    tracks, the tracker's virtual-pinhole points), the same draws."""
+    from mobile_slam_tpu_torch.frontend import tracker as trk
+    from mobile_slam_tpu_torch.models.cameras.base import make_camera
+    from mobile_slam_tpu_torch.ops import ransac
+
+    tcfg = cfg.tracker
+    img0, pyr0, _, pyr1, pts, valid = pair
+    params = lk.LKParams(window=tcfg.lk_window_size, levels=tcfg.lk_pyramid_levels,
+                         iters=tcfg.lk_iterations, eps=tcfg.lk_eps)
+    new, ok = lk.track_pyramidal(pyr0, pyr1, pts, valid, params)
+    active = valid & ok
+    h, w = img0.shape
+    cam = make_camera(cfg.camera, dtype=torch.float32, device=device)
+    focal = cfg.camera.focal_length
+    und0 = trk._virtual_pinhole(cam, pts, focal, w / 2.0, h / 2.0)
+    und1 = trk._virtual_pinhole(cam, new, focal, w / 2.0, h / 2.0)
+    n_hyp, thr = tcfg.ransac_iters, tcfg.f_threshold
+    r = torch.randint(0, 1 << 30, (n_hyp, 8), generator=torch.Generator().manual_seed(RANSAC_SEED))
+    r_dev = r.to(device)
+    out = {}
+    for name, lu in (("lu", True), ("eigh", False)):
+        with _flags({(ransac, "USE_LU_HYPOTHESES"): lu}):
+            def call(a=und0, b=und1, m=active, rr=r_dev):
+                return ransac.find_fundamental_ransac(a, b, m, thr, num_hypotheses=n_hyp, r=rr)
+
+            F, inl = call()
+            resid = float(ransac._epipolar_dist(F, und0, und1)[inl].median())
+            ms = _time_ms(call, reps=10)
+            # The card at float64 against the CPU at float64, the same draws;
+            # held for the LU hypotheses (the eigh ones' 9x9 eigenvectors come
+            # from cuSOLVER on one side and LAPACK on the other: printed).
+            F_c, inl_c = call(und0.double(), und1.double())
+            F_h, inl_h = call(und0.double().cpu(), und1.double().cpu(), active.cpu(), r)
+            F_c = F_c.cpu()
+            a, c = F_c / F_c.norm(), F_h / F_h.norm()
+            f_err = float(min((a - c).abs().max(), (a + c).abs().max()))
+            n_diff = int((inl_c.cpu() != inl_h).sum())
+            if lu:
+                _check(n_diff == 0 and f_err < RANSAC_F_TOL,
+                       f"RANSAC lu: {n_diff} inliers differ, F by {f_err} from the CPU")
+        out[name] = dict(ms=ms, inliers=int(inl.sum()), residual_px=resid, f64_err=f_err,
+                         f64_inliers_differing=n_diff)
+        print(f"[phase 9] RANSAC {name} hypotheses on the bench pair ({int(active.sum())} "
+              f"tracks, {n_hyp} hypotheses): {int(inl.sum())} inliers, median epipolar "
+              f"distance of the inliers {resid:.4f} px, {ms:.3f} ms per call (float32); "
+              f"float64 card against CPU: {n_diff} inliers differ, F within {f_err:.2e}",
+              flush=True)
+    return out
+
+
+def mei_config(example):
+    """The bench configuration through the Mei camera of MEI_CAM."""
+    import dataclasses
+
+    base = example.bench_config()
+    return dataclasses.replace(
+        base, camera=dataclasses.replace(base.camera, **MEI_CAM),
+        tracker=dataclasses.replace(base.tracker, fisheye=False))
+
+
+def phase_cameras(lk, sim, example, make_camera, device="cuda"):
+    """(c) A Mei sequence streamed to TRACKING on the card, then a Scaramuzza
+    round trip on the card against float64 on the CPU."""
+    from mobile_slam_tpu_torch import config as cfgmod
+    from mobile_slam_tpu_torch.engine.vio_engine import Status, VIOEngine
+    from mobile_slam_tpu_torch.eval.evaluator import compute_ate
+    from mobile_slam_tpu_torch.io import synthetic
+    from mobile_slam_tpu_torch.models.cameras import scaramuzza
+
+    cfg = mei_config(example)
+    cam = make_camera(cfg.camera, dtype=torch.float64, device="cpu")
+    r_ic, t_ic = cfg.camera.r_ic_mat, cfg.camera.t_ic_vec
+    data = sim.simulate(synthetic.sim_config(MEI_SECONDS, seed=7, noise=True), cam, r_ic, t_ic)
+    engine = VIOEngine(cfg, device=device)
+    _check(engine.camera.model_type == "MEI", f"engine camera {engine.camera.model_type}")
+    est_ts, est_p, frame_ms, init_frame, imu_i = [], [], [], None, 0
+    lk.reset_launch_counts()
+    for fi in range(len(data.frames)):
+        img = sim.render_frame(data, fi, cam, r_ic, t_ic)
+        ts = data.cam_ts[fi]
+        imu_i = _feed_imu(engine, data, imu_i, ts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.process_frame(img, ts)
+        torch.cuda.synchronize()
+        if init_frame is not None:
+            frame_ms.append(1e3 * (time.perf_counter() - t0))
+        if res.ok:
+            est_ts.append(ts)
+            est_p.append(engine.get_body_state()[0])
+        if init_frame is None and res.status == Status.TRACKING:
+            init_frame = fi
+    counts = dict(lk.launch_counts)
+    n = len(data.frames)
+    _check(init_frame is not None, "the Mei sequence never reached TRACKING")
+    for k, per in LK_PER_FRAME.items():
+        _check(counts[k] == per * n, f"Mei: {k} {counts[k]} launches over {n} frames")
+    ate = compute_ate(np.asarray(est_ts), np.asarray(est_p), data.cam_ts, data.gt_p)
+    _check(bool(np.isfinite(est_p).all()) and ate.rmse < ATE_TOL, f"Mei ATE {ate.rmse} m")
+    print(f"[phase 9] Mei ({cfg.camera.width}x{cfg.camera.height}, xi {cfg.camera.xi}): "
+          f"{n} frames, TRACKING at frame {init_frame}, {len(est_p)} poses, ATE sim3 rmse "
+          f"{ate.rmse:.4f} m over {ate.num_pairs} pairs, median "
+          f"{np.median(frame_ms):.2f} ms per tracking frame, launches {counts}", flush=True)
+
+    scfg = cfgmod.CameraConfig(**SCARAMUZZA_CAM, ocam_inv_poly=tuple(
+        scaramuzza.fit_inverse_poly(np.asarray(SCARAMUZZA_CAM["ocam_poly"]), SCARA_MAX_RHO)))
+    uv = np.stack(np.meshgrid(np.linspace(80, 432, 12), np.linspace(80, 432, 12)), -1).reshape(-1, 2)
+    host = make_camera(scfg, dtype=torch.float64, device="cpu")
+    want_ray = host.lift(torch.as_tensor(uv, dtype=torch.float64))
+    want_uv = host.project(want_ray)
+    errs = {}
+    for dtype in (torch.float64, torch.float32):
+        card = make_camera(scfg, dtype=dtype, device=device)
+        ray = card.lift(torch.as_tensor(uv, dtype=dtype, device=device))
+        back = card.project(ray).double().cpu()
+        errs[str(dtype)] = (float(((ray.double().cpu() - want_ray) / want_ray.norm(dim=-1, keepdim=True)).abs().max()),
+                            float((back - want_uv).abs().max()))
+    round_trip = float((want_uv - torch.as_tensor(uv)).abs().max())
+    _check(errs["torch.float64"][0] <= 1e-12 and errs["torch.float64"][1] <= 1e-9,
+           f"Scaramuzza float64 on the card against the CPU: {errs['torch.float64']}")
+    _check(errs["torch.float32"][1] <= SCARA_F32_PX, f"Scaramuzza float32: {errs['torch.float32']}")
+    _check(round_trip <= SCARA_ROUND_TRIP_PX, f"Scaramuzza round trip {round_trip} px")
+    print(f"[phase 9] Scaramuzza ({len(uv)} pixels): lift / project on the card against "
+          f"float64 on the CPU: float64 {errs['torch.float64'][0]:.2e} relative / "
+          f"{errs['torch.float64'][1]:.2e} px, float32 {errs['torch.float32'][0]:.2e} / "
+          f"{errs['torch.float32'][1]:.2e} px; round trip {round_trip:.4f} px (the fitted "
+          f"inverse polynomial)", flush=True)
+    return dict(counts=counts, ate=float(ate.rmse), init_frame=init_frame, poses=len(est_p),
+                ms_per_frame=float(np.median(frame_ms)))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_tp_solver(stream, cfg, device="cuda"):
+    """(d) tp_damped_step at world size 1 over NCCL against lm._solve_damped
+    on the same equations, float64, from phase 3's last tracking frame."""
+    import torch.distributed as dist
+
+    from mobile_slam_tpu_torch.engine import estimator as est
+    from mobile_slam_tpu_torch.factors.imu_factor import sqrt_info_from_cov
+    from mobile_slam_tpu_torch.models.state import eligible_mask
+    from mobile_slam_tpu_torch.parallel import tp_solver
+    from mobile_slam_tpu_torch.solver import assembly, lm
+
+    x, table, w, prior, ps = _linearization(stream, cfg, device)
+    elig = eligible_mask(table)
+    args = (x, table, w.pre, sqrt_info_from_cov(w.pre.cov[1:]),
+            (w.pre.sum_dt[1:] < 10.0) & (w.imu_cnt[1:] > 0), prior,
+            prior.J0.T @ prior.J0, ps.ex_t, ps.ex_q, est.solver_params(ps),
+            assembly.proj_valid_mask(table))
+    mu = torch.tensor(TP_MU, dtype=torch.float64, device=device)
+    eqs = assembly.build_normal_eqs(*args)
+    dx_ref, dlam_ref = lm._solve_damped(eqs, mu, elig)
+    dist.init_process_group("nccl" if torch.device(device).type == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        dx, dlam, cost = tp_solver.tp_damped_step(*args, elig, mu)
+        ms = _time_ms(lambda: tp_solver.tp_damped_step(*args, elig, mu), reps=10)
+    finally:
+        dist.destroy_process_group()
+    plain_ms = _time_ms(lambda: lm._solve_damped(assembly.build_normal_eqs(*args), mu, elig),
+                        reps=10)
+    e_dx = float((dx - dx_ref).abs().max() / dx_ref.abs().max())
+    e_dl = float((dlam - dlam_ref).abs().max() / dlam_ref.abs().max())
+    e_c = float(abs(cost - eqs.cost) / eqs.cost)
+    _check(max(e_dx, e_dl) <= TP_RTOL and e_c <= 1e-12,
+           f"tp_damped_step against _solve_damped: dx {e_dx}, dlam {e_dl}, cost {e_c}")
+    print(f"[phase 9] tp_damped_step, world 1 over NCCL, {int(elig.sum())} landmarks: dx "
+          f"{e_dx:.2e}, dlam {e_dl:.2e}, cost {e_c:.2e} relative to the unsharded solve; "
+          f"{ms:.2f} ms per step against {plain_ms:.2f} ms for build_normal_eqs + "
+          f"_solve_damped", flush=True)
+    return dict(dx_rel=e_dx, dlam_rel=e_dl, ms=ms, plain_ms=plain_ms)
+
+
 def main() -> int:
     smi_line = phase_device()
     from mobile_slam_tpu_torch.engine import example
@@ -1805,11 +2229,16 @@ def main() -> int:
     m_pair = bench_pair(m_data, m_cam, m_cfg, sim, example, r_ic=m_cfg.camera.r_ic_mat)
     mobile_k = phase_kernels(lk, m_pair, m_cfg, tag="phase 8", second_cases=False)
     gate = phase_gateway(lk, m_over, m_cfg, m_cam, m_data, sim, m_in_view)
+    arms = phase_solver_arms(stream, cfg)
+    ransac_arms = phase_ransac(lk, pair, cfg)
+    cams = phase_cameras(lk, sim, example, make_camera)
+    tp = phase_tp_solver(stream, cfg)
     for k in LK_PER_FRAME:
         kernels[k].update(launches=cli_run["counts"][k], launches_serving=serve["counts"][k],
                           launches_streaming=stream["counts"][k],
                           launches_fleet=fleet["counts"][k],
-                          launches_gateway=gate["counts"][k], **fleet_k[k],
+                          launches_gateway=gate["counts"][k],
+                          launches_mei=cams["counts"][k], **fleet_k[k],
                           **{f"mobile_{n}": v for n, v in mobile_k[k].items()})
     print(f"[summary] streaming {stream['ms_per_frame']:.2f} ms per tracking frame, "
           f"{stream['syncs_per_frame']:.1f} host syncs per frame; chunked "
@@ -1826,7 +2255,11 @@ def main() -> int:
           f"{ffleet['fps']:.3f} fps against single-stream {ffleet['single_chunked_fps']:.3f}; "
           f"gateway ({MOBILE_PROFILE}, td on) {gate['fps']:.3f} fps, proc_ms median "
           f"{gate['proc_ms_median']:.2f} p90 {gate['proc_ms_p90']:.2f}, ATE {gate['ate']:.4f} m, "
-          f"td {1e3 * gate['td_final']:.3f} ms against {1e3 * MOBILE_TD:.1f} ms", flush=True)
+          f"td {1e3 * gate['td_final']:.3f} ms against {1e3 * MOBILE_TD:.1f} ms; solver arms "
+          f"(float32 ms per solve_and_slide, host syncs, LM iterations) "
+          f"{ {k: (round(v['ms'], 2), v['syncs'], v['iterations']) for k, v in arms.items()} }; "
+          f"RANSAC lu {ransac_arms['lu']['ms']:.3f} ms / eigh {ransac_arms['eigh']['ms']:.3f} ms; "
+          f"Mei ATE {cams['ate']:.4f} m; tp_damped_step dx {tp['dx_rel']:.1e}", flush=True)
     _check("jax" not in sys.modules, "jax was imported")
     _check(not any(m == "mobile_slam_tpu" or m.startswith("mobile_slam_tpu.")
                    for m in sys.modules), "the JAX package was imported")

@@ -4,7 +4,9 @@ The input is the reference structure with numpy leaves — a NamedTuple (as
 ``jax.tree.map(np.asarray, x)`` returns it) or a nested dict with the same
 field names. Floating leaves become ``dtype`` tensors on ``device``;
 integer and bool leaves keep their type (int32 stays int32). ``to_numpy``
-goes back to the port's structure with numpy leaves.
+goes back to the port's structure with numpy leaves. ``camera`` carries a
+reference camera (its model, size, focal length and parameters: a vector,
+or Scaramuzza's dict of four) into the port's ``Camera``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from mobile_slam_tpu_torch.engine.estimator import (EstimatorState, FrameInput,
                                                     StaticParams)
 from mobile_slam_tpu_torch.frontend.tracker import TrackerState
 from mobile_slam_tpu_torch.imu.preintegration import Preintegration
+from mobile_slam_tpu_torch.models.cameras import base as cam_base
 from mobile_slam_tpu_torch.models.state import FeatureTable, WindowState
 from mobile_slam_tpu_torch.solver.assembly import Prior
 
@@ -63,6 +66,22 @@ def frame_input(obj, **kw) -> FrameInput:
 
 def tracker_state(obj, **kw) -> TrackerState:
     return to_torch(obj, TrackerState, **kw)
+
+
+def camera_params(params, *, device, dtype=torch.float32):
+    """A camera's parameters: a vector, or a dict of vectors (Scaramuzza)."""
+    if isinstance(params, dict):
+        return {k: _leaf(v, device, dtype) for k, v in params.items()}
+    return _leaf(params, device, dtype)
+
+
+def camera(ref, *, device, dtype=torch.float32) -> cam_base.Camera:
+    """The port's Camera over a reference camera's parameters (any object
+    with the reference Camera's ``model_type``, ``params``, ``width``,
+    ``height`` and ``focal``)."""
+    return cam_base.from_params(
+        ref.model_type, camera_params(ref.params, device=device, dtype=dtype),
+        ref.width, ref.height, ref.focal)
 
 
 def to_numpy(obj):

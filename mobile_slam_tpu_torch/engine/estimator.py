@@ -11,7 +11,8 @@ The reference's ``lax.cond`` on the keyframe flag takes one of two forms in
 engine reads the flag once per frame and runs one branch); a bool tensor
 runs both branches and selects per element with ``torch.where``, as
 ``lax.cond`` does under ``jax.vmap`` (the fleet step, parallel/batch.py,
-which has one flag per sequence and no host read).
+which has one flag per sequence and no host read). The same choice picks
+the form of the solver's step options (solver/lm.py).
 
 With ``estimate_td`` on, ``solve_and_slide`` also moves the camera-IMU time
 offset td by the solver's scalar innovation, through the reference's
@@ -353,7 +354,7 @@ def solve_and_slide(state: EstimatorState, is_kf, params: StaticParams,
     sp = solver_params(params)
     w, table, res, culled_ids = lm.optimize(w, table, state.prior, params.ex_t,
                                             params.ex_q, sp, num_iterations,
-                                            td0=state.td)
+                                            td0=state.td, host_branch=not on_device)
     td, gain = _fuse_td(state.td, res, params)
     x_post = XState(p=w.p, q=w.q, v=w.v, ba=w.ba, bg=w.bg, lam=res.x.lam, td=td)
 

@@ -25,7 +25,7 @@ import torch
 
 def _cam_call(fn, camera, x: np.ndarray) -> np.ndarray:
     """Apply a camera function to a float64 numpy batch."""
-    t = torch.as_tensor(x, dtype=camera.params.dtype, device=camera.params.device)
+    t = torch.as_tensor(x, dtype=camera.dtype, device=camera.device)
     return fn(t).cpu().numpy()
 
 

@@ -1,7 +1,8 @@
 """Feature bank operations on the fixed (F, 11) observation grid (torch twin
 of mobile_slam_tpu.frontend.feature_table): id matching and slot
 allocation with the keyframe parallax decision, multi-view triangulation
-(closed-form adjugate solve), the two window slides and failure removal.
+(closed-form adjugate solve, or with ``ADJUGATE_TRIANGULATION`` False the
+reference's batched 4x4 eigh), the two window slides and failure removal.
 Scatters that the reference writes with ``mode="drop"`` go through one
 extra dump row."""
 
@@ -14,6 +15,7 @@ import torch
 from mobile_slam_tpu_torch.config import NUM_SLOTS
 from mobile_slam_tpu_torch.models.state import FeatureTable
 from mobile_slam_tpu_torch.utils import rotations as rot
+from mobile_slam_tpu_torch.utils.linalg import eigh64
 
 W = NUM_SLOTS
 
@@ -110,11 +112,19 @@ def add_and_check_parallax(table: FeatureTable, ids, obs, uv, vel, valid,
     return AddResult(new_table, is_kf, last_track_num, mean_par)
 
 
+# Triangulation solver, a module global with the reference's name and
+# default, read at call time: the closed-form adjugate solve, or the
+# smallest eigenvector of the batched 4x4 normal matrix.
+ADJUGATE_TRIANGULATION = True
+
+
 def triangulate(table: FeatureTable, p, q, ex_t, ex_q, init_depth,
                 window_size: int = W - 1, td=0.0) -> FeatureTable:
     """Multi-view DLT for eligible features without a depth, solved as the
     inhomogeneous 3x3 normal equations in closed form (adjugate) with the
-    relative conditioning gate of the reference."""
+    relative conditioning gate of the reference, or (ADJUGATE_TRIANGULATION
+    False) as the smallest eigenvector of the 4x4 normal matrix, whose
+    depth ratio does not depend on the eigenvector's sign."""
     dtype = p.dtype
     elig = (table.fid >= 0) & (table.used_num >= 2) & (table.start < window_size - 2)
     need = elig & (table.depth <= 0)
@@ -139,19 +149,24 @@ def triangulate(table: FeatureTable, p, q, ex_t, ex_q, init_depth,
     m = table.mask.to(dtype)[..., None]
     rows = torch.cat([row0 * m, row1 * m], dim=1)
     AtA = torch.einsum("fri,frj->fij", rows, rows)
-    M = AtA[:, :3, :3]
-    b = -AtA[:, :3, 3]
-    cof = torch.stack([
-        torch.linalg.cross(M[:, 1], M[:, 2], dim=-1),
-        torch.linalg.cross(M[:, 2], M[:, 0], dim=-1),
-        torch.linalg.cross(M[:, 0], M[:, 1], dim=-1),
-    ], dim=-1)
-    det = torch.einsum("fi,fi->f", M[:, 0], cof[:, :, 0])
-    scale3 = (torch.diagonal(M, dim1=-2, dim2=-1).sum(-1) / 3.0) ** 3
-    ill = det <= 1e-6 * torch.clamp(scale3, min=1e-30)
-    x = torch.einsum("fij,fj->fi", cof, b) / torch.where(ill, torch.ones_like(det), det)[:, None]
     init_d = torch.as_tensor(init_depth, dtype=dtype, device=p.device)
-    depth = torch.where(ill, init_d, x[:, 2])
+    if ADJUGATE_TRIANGULATION:
+        M = AtA[:, :3, :3]
+        b = -AtA[:, :3, 3]
+        cof = torch.stack([
+            torch.linalg.cross(M[:, 1], M[:, 2], dim=-1),
+            torch.linalg.cross(M[:, 2], M[:, 0], dim=-1),
+            torch.linalg.cross(M[:, 0], M[:, 1], dim=-1),
+        ], dim=-1)
+        det = torch.einsum("fi,fi->f", M[:, 0], cof[:, :, 0])
+        scale3 = (torch.diagonal(M, dim1=-2, dim2=-1).sum(-1) / 3.0) ** 3
+        ill = det <= 1e-6 * torch.clamp(scale3, min=1e-30)
+        x = torch.einsum("fij,fj->fi", cof, b) / torch.where(ill, torch.ones_like(det), det)[:, None]
+        depth = torch.where(ill, init_d, x[:, 2])
+    else:
+        vmin = eigh64(AtA)[1][..., 0]
+        w = vmin[:, 3]
+        depth = vmin[:, 2] / torch.where(torch.abs(w) < 1e-12, torch.full_like(w, 1e-12), w)
     depth = torch.where(depth < 0.1, init_d, depth)
     return table._replace(depth=torch.where(need, depth.to(dtype), table.depth))
 

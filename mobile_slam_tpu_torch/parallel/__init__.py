@@ -1,1 +1,2 @@
-"""Multi-sequence fleets (parallel/batch.py)."""
+"""Multi-sequence fleets (parallel/batch.py) and the landmark-sharded solve
+step (parallel/tp_solver.py)."""

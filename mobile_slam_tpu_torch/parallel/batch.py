@@ -19,8 +19,8 @@ Every operation on the per-frame path then runs once for the whole fleet:
 The reference shards the batch axis over a TPU mesh. On one card the mesh
 reduces to a single ``torch.device``: ``make_mesh`` returns it and
 ``shard_batched`` moves every tensor leaf there. A fleet spread over
-several cards is not built here (the landmark-sharded solver,
-parallel/tp_solver.py, is the reference's multi-device path).
+several cards is not built here; parallel/tp_solver.py spreads one
+sequence's solve over the ranks of a process group instead.
 
 What ``vmap`` requires of code on the per-frame path: no host branch on a
 tensor (``bool(t)``, ``int(t)``, ``if t``) and no in-place write of a

@@ -133,7 +133,7 @@ def run(device="cuda", b: int = 4, dtype=torch.float32, seconds: float = 3.0) ->
     for n_it in (1, 2):
         one = lm.optimize(w, tab, st.prior, ps.ex_t, ps.ex_q, sp, n_it, td0=st.td)
         many = torch.func.vmap(lambda w_, t, pr, td: lm.optimize(
-            w_, t, pr, ps.ex_t, ps.ex_q, sp, n_it, td0=td))(rep(w), rep(tab), rep(st.prior),
+            w_, t, pr, ps.ex_t, ps.ex_q, sp, n_it, td0=td, host_branch=False))(rep(w), rep(tab), rep(st.prior),
                                                             rep(st.td))
         out[f"LM {n_it} iteration(s), window"] = _diff(many[0], one[0])
     n_it = cfg.estimator.num_iterations

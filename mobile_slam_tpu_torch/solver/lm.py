@@ -1,7 +1,25 @@
 """Sliding-window Levenberg-Marquardt with landmark Schur complement (torch
-twin of mobile_slam_tpu.solver.lm, default path: the dual-candidate step —
-a near-Gauss-Newton and a conservative Marquardt candidate, both solved and
-scored each iteration — over a fixed iteration count).
+twin of mobile_slam_tpu.solver.lm): each iteration builds the normal
+equations, solves a near-Gauss-Newton and a conservative Marquardt
+candidate and keeps the one that lowers the robust cost more.
+
+The reference's three step options are module globals with its names and
+defaults, read at call time (the port is eager, so nothing retraces):
+
+* ``GREEDY_GN``: the Marquardt candidate is evaluated only when the
+  Gauss-Newton one did not lower the cost.
+* ``BATCH_CANDIDATES``: both candidates in one ``torch.func.vmap`` of the
+  damped solve and one of the cost.
+* ``EARLY_EXIT_FTOL``: stop once an accepted step improves the cost by less
+  than ftol (relative); None runs the fixed count.
+
+The reference writes two of them as device control flow (``lax.cond``,
+``while_loop``), which ``jax.vmap`` turns into a select and a masked loop.
+``solve`` takes both forms, chosen by ``host_branch`` as ``solve_and_slide``
+chooses its keyframe branch: True reads the decision on the host (one read
+per iteration, counted in ``counts``) and skips the work; False computes
+both sides and selects on the device, and runs the full count with a
+per-sequence ``done`` flag that freezes the carry (the form ``vmap`` needs).
 
 After the loop: NaN rollback, the 4-dof gauge fix of frame 0, the decoupled
 td innovation (a scalar Gauss-Newton step on the projection cost at the
@@ -28,6 +46,19 @@ W = NUM_SLOTS
 S = layout.S
 NSOLVE = layout.EX_COL
 OUTLIER_REPROJ_WHITENED = 2.0
+
+GREEDY_GN = False
+BATCH_CANDIDATES = False
+EARLY_EXIT_FTOL: float | None = None
+
+# LM iterations run and host reads made by the host forms of GREEDY_GN and
+# EARLY_EXIT_FTOL since the last reset_counts() (python counters, no sync).
+counts = {"iterations": 0, "host_reads": 0}
+
+
+def reset_counts() -> None:
+    for k in counts:
+        counts[k] = 0
 
 
 class SolveResult(NamedTuple):
@@ -76,7 +107,10 @@ def _solve_damped(eqs: assembly.NormalEqs, mu, lam_mask):
 
 def solve(x0: XState, table: FeatureTable, window: WindowState, prior: Prior,
           ex_t, ex_q, params: SolverParams, num_iterations: int,
-          mu_init: float = 1e-8) -> SolveResult:
+          mu_init: float = 1e-8, host_branch: bool = True) -> SolveResult:
+    """The LM loop; ``host_branch`` picks the form of the step options
+    (module docstring)."""
+    greedy, batched, ftol = GREEDY_GN, BATCH_CANDIDATES, EARLY_EXIT_FTOL
     dtype = x0.p.dtype
     imu_sqrt_info = sqrt_info_from_cov(window.pre.cov[1:])
     imu_valid = (window.pre.sum_dt[1:] < 10.0) & (window.imu_cnt[1:] > 0)
@@ -88,32 +122,71 @@ def solve(x0: XState, table: FeatureTable, window: WindowState, prior: Prior,
         return assembly.total_cost(x, table, window.pre, imu_sqrt_info,
                                    imu_valid, prior, ex_t, ex_q, params, proj_valid)
 
-    cost0 = cost_fn(x0)
-    x, cost = x0, cost0
-    mu = torch.full((), mu_init, dtype=dtype, device=x0.p.device)
-    n_acc = torch.zeros((), dtype=torch.int32, device=x0.p.device)
     mu_b = torch.full((), 1e-4, dtype=dtype, device=x0.p.device)
-    inf = torch.full_like(cost, float("inf"))
-    for _ in range(num_iterations):
+
+    def candidate(x, eqs, mu):
+        dx, dlam = _solve_damped(eqs, mu, lam_mask)
+        x_c = _retract(x, dx, dlam, lam_mask)
+        return x_c, cost_fn(x_c)
+
+    def step(x, cost, mu):
         eqs = assembly.build_normal_eqs(x, table, window.pre, imu_sqrt_info,
                                         imu_valid, prior, prior_H0, ex_t, ex_q,
                                         params, proj_valid)
-        dx_a, dlam_a = _solve_damped(eqs, mu, lam_mask)
-        x_a = _retract(x, dx_a, dlam_a, lam_mask)
-        cost_a = cost_fn(x_a)
-        dx_b, dlam_b = _solve_damped(eqs, mu_b, lam_mask)
-        x_b = _retract(x, dx_b, dlam_b, lam_mask)
-        cost_b = cost_fn(x_b)
+        if batched and not greedy:
+            xs, costs = torch.func.vmap(lambda m: candidate(x, eqs, m))(
+                torch.stack([mu, mu_b]))
+            x_a, x_b = XState(*[t[0] for t in xs]), XState(*[t[1] for t in xs])
+            cost_a, cost_b = costs[0], costs[1]
+        else:
+            x_a, cost_a = candidate(x, eqs, mu)
+            good_a = (torch.isfinite(cost_a) & (cost_a < cost)) if greedy else None
+            if greedy and host_branch:
+                counts["host_reads"] += 1
+                x_b, cost_b = ((x_a, cost_a) if bool(good_a)
+                               else candidate(x, eqs, mu_b))
+            else:
+                x_b, cost_b = candidate(x, eqs, mu_b)
+                if greedy:
+                    x_b = tree_where(good_a, x_a, x_b)
+                    cost_b = torch.where(good_a, cost_a, cost_b)
         use_a = torch.isfinite(cost_a) & (
             cost_a <= torch.where(torch.isfinite(cost_b), cost_b, inf))
         x_new = tree_where(use_a, x_a, x_b)
         cost_new = torch.where(use_a, cost_a, cost_b)
         ok = torch.isfinite(cost_new) & (cost_new < cost)
-        x = tree_where(ok, x_new, x)
-        cost = torch.where(ok, cost_new, cost)
         mu = torch.where(ok & use_a, torch.clamp(mu * 0.25, min=1e-12),
                          torch.where(ok, mu, torch.clamp(mu * 10.0, max=1e4)))
-        n_acc = n_acc + ok.to(torch.int32)
+        return (tree_where(ok, x_new, x), torch.where(ok, cost_new, cost), mu,
+                ok)
+
+    cost0 = cost_fn(x0)
+    inf = torch.full_like(cost0, float("inf"))
+    x, cost = x0, cost0
+    mu = torch.full((), mu_init, dtype=dtype, device=x0.p.device)
+    n_acc = torch.zeros((), dtype=torch.int32, device=x0.p.device)
+    done = torch.zeros((), dtype=torch.bool, device=x0.p.device)
+    for _ in range(num_iterations):
+        counts["iterations"] += 1
+        x_n, cost_n, mu_n, ok = step(x, cost, mu)
+        n_acc_n = n_acc + ok.to(torch.int32)
+        if ftol is None:
+            x, cost, mu, n_acc = x_n, cost_n, mu_n, n_acc_n
+            continue
+        # Converged: an accepted step whose relative improvement fell below
+        # ftol (Ceres function_tolerance); a rejected step keeps iterating.
+        stop = ok & ((cost - cost_n) / torch.clamp(cost, min=1e-30) < ftol)
+        if host_branch:
+            x, cost, mu, n_acc = x_n, cost_n, mu_n, n_acc_n
+            counts["host_reads"] += 1
+            if bool(stop):
+                break
+        else:
+            x = tree_where(done, x, x_n)
+            cost = torch.where(done, cost, cost_n)
+            mu = torch.where(done, mu, mu_n)
+            n_acc = torch.where(done, n_acc, n_acc_n)
+            done = done | stop
     zero = torch.zeros((), dtype=dtype, device=x0.p.device)
     return SolveResult(x=x, cost0=cost0, cost=cost, accepted=n_acc,
                        td_info=zero, td_innov=zero, td_wsum=zero)
@@ -139,16 +212,19 @@ def apply_gauge_fix(x: XState, p0_old, q0_old) -> XState:
 
 
 def optimize(window: WindowState, table: FeatureTable, prior: Prior, ex_t,
-             ex_q, params: SolverParams, num_iterations: int, td0=0.0):
+             ex_q, params: SolverParams, num_iterations: int, td0=0.0,
+             host_branch: bool = True):
     """Solve, NaN rollback, gauge fix, depth write-back and outlier culling.
-    Returns (window, table, SolveResult, culled_ids (F,))."""
+    Returns (window, table, SolveResult, culled_ids (F,)). ``host_branch``
+    as in ``solve``."""
     dtype, dev = window.p.dtype, window.p.device
     elig = eligible_mask(table)
     safe_depth = torch.where(table.depth > 0, table.depth, params.init_depth)
     lam0 = torch.where(elig, 1.0 / safe_depth, torch.ones_like(safe_depth))
     x0 = XState(p=window.p, q=window.q, v=window.v, ba=window.ba, bg=window.bg,
                 lam=lam0, td=torch.as_tensor(td0, dtype=dtype, device=dev))
-    res = solve(x0, table, window, prior, ex_t, ex_q, params, num_iterations)
+    res = solve(x0, table, window, prior, ex_t, ex_q, params, num_iterations,
+                host_branch=host_branch)
 
     finite = torch.stack([torch.all(torch.isfinite(t)) for t in res.x]).all()
     x = tree_where(finite, res.x, x0)

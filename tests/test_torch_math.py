@@ -83,8 +83,15 @@ def test_camera_project_lift(model):
 
 
 def test_camera_models_not_ported_raise():
-    with pytest.raises(NotImplementedError):
-        make_camera(cfgmod.CameraConfig(model_type="MEI"), device="cpu")
+    """Every model of the JAX package is ported (tests/test_torch_cameras.py
+    holds Mei and Scaramuzza against it); a model it does not know raises
+    ValueError, as the reference's factory does."""
+    for model in ("MEI", "SCARAMUZZA"):
+        assert make_camera(cfgmod.CameraConfig(model_type=model), device="cpu").model_type == model
+    with pytest.raises(ValueError):
+        jax_camera(cfgmod.CameraConfig(model_type="CATADIOPTRIC"))
+    with pytest.raises(ValueError):
+        make_camera(cfgmod.CameraConfig(model_type="CATADIOPTRIC"), device="cpu")
 
 
 @pytest.fixture(scope="module")

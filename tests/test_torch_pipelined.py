@@ -128,7 +128,7 @@ def both_pipelined(world):
     rows, imu_i, init = [], 0, None
     for fi, ts in enumerate(data.cam_ts):
         imu_i = _push([jeng, teng], data, imu_i, ts)
-        step_ms = teng.measure_device_step(2) if fi % 4 == 0 else None
+        step_ms = teng.measure_device_step(1) if fi % 4 == 0 else None
         res = [_features(eng, data, fi) for eng in (jeng, teng)]
         flats = [None if e._last_flat is None else np.asarray(e._last_flat) for e in (jeng, teng)]
         rows.append((*res, *flats, step_ms, (jeng.is_initialized(), teng.is_initialized())))

@@ -160,3 +160,20 @@ def test_call_overhead_driver_on_cpu():
     assert sorted(res["eager"]) == [0, 1, 2] and res["graph"] is None
     assert all(v > 0 for v in res["eager"].values())
     assert np.isfinite(res["slope_eager_us"]) and res["slope_graph_us"] is None
+
+
+def test_forward_ad_cost_probe_on_cpu():
+    """The forward-AD probe runs on the CPU and shows its finding there: a
+    constant times a differentiated input goes through PyTorch's Python
+    reference ops, the plain product and a product of two differentiated
+    inputs do not; on a machine without a card it refuses the card."""
+    from mobile_slam_tpu_torch.probes import forward_ad_cost
+
+    out = forward_ad_cost.run("cpu", n=20)
+    cases = out["cases"]
+    assert cases["constant * dual"]["ref_calls"] > 0
+    assert cases["plain"]["ref_calls"] == 0 and cases["dual * dual"]["ref_calls"] == 0
+    assert all(c["us_per_call"] > 0 for c in cases.values())
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            forward_ad_cost.run("cuda", n=1)
