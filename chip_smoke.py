@@ -130,8 +130,27 @@ Phases, each printed as it runs:
    1 over NCCL against lm._solve_damped on the same equations (float64,
    1e-9 relative).
 
+10. calibration and the adversarial tier: (a) calibrate_from_board at
+   float64 on the card for four cameras (EuRoC's pinhole 752x480, TUM-VI's
+   Kannala-Brandt 512x512, the Mei camera of phase 9, the reference test's
+   Scaramuzza camera), each from 25 views of a 9x6 board (1,350 corners,
+   0.1 px noise) rendered as tests/test_calibration_bootstrap.py renders
+   them: the reference test's bars on the result, the same call on the
+   CPU within 0.02 px on every corner and 1e-6 on the RMS; prints ms per
+   call and per Gauss-Newton iteration and the RMS before (the bootstrap)
+   and after; the bundle's Jacobian timed in forward and reverse mode;
+   refine_extrinsics and an 8-view calibrate_camera_odometry against their
+   ground truth (the reference tests' bars). (b) the adversarial curve
+   through ChunkedImageServer as bench.py's _image_path_recovering runs it
+   (bench_config, float32, chunks of 25, bench.py's SimConfig, seed 11):
+   level 0 over 6 s (ATE Sim3 < 0.05 m), level 2 over 12 s (every pose
+   finite); prints poses, ATE, fps, render seconds, recoveries and the
+   host-clock ms of each failed-tail replay; K1/K2/K3 at 1/2/2 launches per
+   chunk-loop and streamed frame, replays included.
+
 Prints a JSON line of per-kernel results ("launches": phase 6's pipelined
-run; phases 3, 4, 7, 8 and 9's Mei run beside it, "batched_*" the B = 4
+run; phases 3, 4, 7, 8, 9's Mei run and 10's adversarial arms beside it,
+"batched_*" the B = 4
 launch of phase 7, "mobile_*" phase 8's kernel timings), the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}. Any failed check
 raises.
@@ -233,6 +252,21 @@ TP_MU = 1e-4            # the damping of phase 9's sharded step
 TP_RTOL = 1e-9
 # Published H100 SXM peaks (NVIDIA data sheet) for the bounds: HBM3 bytes/s
 # and float32 outside the tensor cores.
+BOARD = (9, 6)          # phase 10: inner corners (cols, rows) of the calibration board
+BOARD_SQUARE = 0.04     # m (tests/test_calibration_bootstrap.py)
+CALIB_VIEWS = 25        # a real calibration sweep: 25 views, 1,350 corners
+CALIB_NOISE_PX = 0.1
+CALIB_ITERS = 30        # calibrate_from_board's joint iterations (its default)
+CALIB_CPU_PX = 0.02     # px, card against CPU: every corner's projection (the Scaramuzza
+                        # bundle's inverse polynomial is ill-conditioned: two correct float64
+                        # solvers part by ~0.01 px after 30 iterations)
+CALIB_RMS_RTOL = 1e-6   # card against CPU: the final board RMS
+ODO_VIEWS = 8           # phase 10's hand-eye calibration
+ADV_CHUNK = 25          # bench.py _image_path_recovering's serving chunk
+ADV_SEED = 11           # bench.py --adv-seeds' default
+ADV_ARMS = ((0, 6.0), (2, 12.0))  # (nuisance level, seconds): 121 and 241 frames
+ADV_JAX = ("level 0: 0.0067 m over 230/241 poses at 12 s; level 2: 0.41-0.69 m over seeds "
+           "11/23/37, 1 recovery each (artifacts/bench_adversarial_r5.json, TPU v5e)")
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 
@@ -2176,6 +2210,329 @@ def phase_tp_solver(stream, cfg, device="cuda"):
     return dict(dx_rel=e_dx, dlam_rel=e_dl, ms=ms, plain_ms=plain_ms)
 
 
+def _euler_rot(rx, ry, rz):
+    cx, sx, cy, sy, cz, sz = np.cos(rx), np.sin(rx), np.cos(ry), np.sin(ry), np.cos(rz), np.sin(rz)
+    Rx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+    Ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+    Rz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+    return Rz @ Ry @ Rx
+
+
+def board_views(project, params, width, height, n_views, seed=0, depth=0.55, lateral=0.12):
+    """Board views of a calibration sweep, as tests/test_calibration_bootstrap.py
+    renders them (strong tilts, off-center placements, the whole board in the
+    image), through a port camera's float64 ``project`` on the host, with
+    CALIB_NOISE_PX of pixel noise: (object points, pixels, camera-frame
+    corners) per view."""
+    rng = np.random.default_rng(seed)
+    cols, rows = BOARD
+    xs, ys = np.meshgrid(np.arange(cols), np.arange(rows))
+    obj = np.stack([xs.ravel() * BOARD_SQUARE, ys.ravel() * BOARD_SQUARE,
+                    np.zeros(cols * rows)], axis=-1)
+    center = obj.mean(axis=0)
+    tilts = [(-0.6, 0.15), (0.6, -0.15), (0.15, -0.6), (-0.15, 0.6), (0.45, 0.45),
+             (-0.45, -0.45), (0.0, 0.0), (0.3, -0.5), (-0.5, 0.3), (0.5, 0.5)]
+    offs = [(0, 0), (1, 0), (-1, 0), (0, 1), (0, -1), (1, 1), (-1, -1), (1, -1), (-1, 1), (0, 0)]
+    objs, imgs, pcs = [], [], []
+    for v in range(8 * n_views):
+        if len(objs) == n_views:
+            break
+        rx, ry = tilts[v % len(tilts)]
+        ox, oy = offs[v % len(offs)]
+        R = _euler_rot(rx + 0.05 * rng.normal(), ry + 0.05 * rng.normal(), rng.uniform(-0.5, 0.5))
+        t = np.array([lateral * ox + rng.uniform(-0.02, 0.02),
+                      lateral * oy + rng.uniform(-0.02, 0.02), depth * rng.uniform(0.9, 1.25)])
+        pc = (obj - center) @ R.T + t
+        if (pc[:, 2] < 0.05).any():
+            continue
+        uv = project(params, torch.as_tensor(pc, dtype=torch.float64)).numpy()
+        uv = uv + rng.normal(size=uv.shape) * CALIB_NOISE_PX
+        if ((uv[:, 0] > 2) & (uv[:, 0] < width - 2) & (uv[:, 1] > 2) & (uv[:, 1] < height - 2)).all():
+            objs.append(obj)
+            imgs.append(uv)
+            pcs.append(pc)
+    _check(len(objs) == n_views, f"only {len(objs)} board views fit the image")
+    return objs, imgs, np.concatenate(pcs)
+
+
+def calibration_cameras():
+    """The four models of phase 10 (a): model -> (true flat parameters
+    (float64, CPU), width, height, view options, the reference test's bar
+    on the result)."""
+    from mobile_slam_tpu_torch import config as cfgmod
+    from mobile_slam_tpu_torch.models.cameras import equidistant, mei, pinhole, scaramuzza
+
+    kw = dict(dtype=torch.float64, device="cpu")
+    eu = cfgmod.load_config(os.path.join(REPO, "configs", "euroc.yaml")).camera
+    tv = cfgmod.load_config(os.path.join(REPO, "configs", "tum_vi_room1.yaml")).camera
+    poly = np.array([-250.0, 0.0, 1.8e-3, -2.0e-6, 8.0e-9])   # the reference test's OCAM camera
+    scara = np.concatenate([scaramuzza.fit_inverse_poly(poly, 0.5 * np.hypot(752, 480)),
+                            [376.0, 240.0, 1.0, 0.0, 0.0]])
+
+    def focal_bar(true, p, rms):       # test_calibration_bootstrap.py: pinhole / KB
+        return rms < 0.5 and all(abs(p[i] - true[i]) / true[i] < 0.05 for i in (0, 1))
+
+    def mei_bar(true, p, rms):         # f_eq = gamma / (1 + xi) within 8%
+        f_true, f_eq = true[0] / (1 + true[8]), p[0] / (1 + p[8])
+        return rms < 1.0 and abs(f_eq - f_true) / f_true < 0.08
+
+    def scara_bar(true, p, rms):       # the ray fan the board sweep covers, within 2 px
+        from mobile_slam_tpu_torch.models.cameras import calibration as cal
+
+        th = np.linspace(-1.5, -0.85, 25)
+        fan = torch.as_tensor(np.stack([np.cos(th), np.zeros_like(th), -np.sin(th)], -1))
+        err = (cal._scaramuzza_project_flat(torch.as_tensor(p), fan)
+               - cal._scaramuzza_project_flat(torch.as_tensor(true), fan)).norm(dim=-1).max()
+        return rms < 0.5 and float(err) < 2.0
+
+    return {
+        "PINHOLE": (pinhole.make_params(eu.fx, eu.fy, eu.cx, eu.cy, *eu.dist, **kw), 752, 480,
+                    {}, focal_bar),
+        "KANNALA_BRANDT": (equidistant.make_params(tv.fx, tv.fy, tv.cx, tv.cy, *tv.dist, **kw),
+                           512, 512, dict(depth=0.45), focal_bar),
+        "MEI": (mei.make_params(MEI_CAM["fx"], MEI_CAM["fy"], MEI_CAM["cx"], MEI_CAM["cy"],
+                                *MEI_CAM["dist"], xi=MEI_CAM["xi"], **kw), 752, 480,
+                dict(depth=0.5), mei_bar),
+        "SCARAMUZZA": (torch.as_tensor(scara), 752, 480, dict(depth=0.4, lateral=0.22),
+                       scara_bar),
+    }
+
+
+def _host_ms(fn, reps, device):
+    """Median host-clock ms of ``reps`` calls, each ended by a device sync."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def phase_calibration(device="cuda", n_views=CALIB_VIEWS):
+    """(a) calibrate_from_board for each model on the card at float64, held
+    to the reference test's bars and against the same call on the CPU; the
+    bundle's Jacobian timed in forward and reverse mode; refine_extrinsics and
+    calibrate_camera_odometry against their ground truth."""
+    from mobile_slam_tpu_torch.models.cameras import calibration as cal
+    from mobile_slam_tpu_torch.utils import gpl
+
+    refine = cal._refine_board_joint
+    timing = {}
+
+    def timed_refine(*a, **kw):
+        t0 = time.perf_counter()
+        out = refine(*a, **kw)
+        timing["refine_ms"] = 1e3 * (time.perf_counter() - t0)
+        return out
+
+    out = {}
+    cal._refine_board_joint = timed_refine
+    try:
+        for mt, (true, w, h, opts, bar) in calibration_cameras().items():
+            project = cal._PROJECT[mt]
+            objs, imgs, pcs = board_views(project, true, w, h, n_views, **opts)
+            args = (mt, BOARD, objs, imgs, w, h)
+            _, rms0 = cal.calibrate_from_board(*args, refine=False, device=device)
+            cal.calibrate_from_board(*args, refine_iters=1, device=device)   # warm-up
+            t0 = time.perf_counter()
+            p, rms = cal.calibrate_from_board(*args, refine_iters=CALIB_ITERS, device=device)
+            call_ms = 1e3 * (time.perf_counter() - t0)
+            iter_ms = timing["refine_ms"] / CALIB_ITERS
+            t0 = time.perf_counter()
+            p_cpu, rms_cpu = cal.calibrate_from_board(*args, refine_iters=CALIB_ITERS, device="cpu")
+            cpu_ms = 1e3 * (time.perf_counter() - t0)
+            pts = torch.as_tensor(pcs)
+            px = float((project(torch.as_tensor(p), pts)
+                        - project(torch.as_tensor(p_cpu), pts)).abs().max())
+            d_rms = abs(rms - rms_cpu) / rms_cpu
+            _check(bool(bar(true.numpy(), p, rms)), f"{mt}: calibration misses the reference "
+                   f"test's bar: rms {rms} px, params {p} against {true.numpy()}")
+            _check(px <= CALIB_CPU_PX and d_rms <= CALIB_RMS_RTOL,
+                   f"{mt}: card against CPU: corners {px} px, rms {d_rms} relative")
+            out[mt] = dict(call_ms=call_ms, iter_ms=iter_ms, cpu_ms=cpu_ms, rms_before=rms0,
+                           rms=rms, cpu_px=px, cpu_rms_rel=d_rms, params=p.tolist())
+            print(f"[phase 10] calibrate_from_board {mt} {w}x{h}, {n_views} views "
+                  f"({len(pcs)} corners, {CALIB_NOISE_PX} px noise): rms {rms0:.4f} px "
+                  f"(bootstrap) -> {rms:.4f} px after {CALIB_ITERS} joint iterations; "
+                  f"{call_ms:.1f} ms per call on {device}, {iter_ms:.2f} ms per Gauss-Newton "
+                  f"iteration; params {np.array2string(p[:4], precision=3)} against "
+                  f"{np.array2string(true.numpy()[:4], precision=3)}; the CPU's call "
+                  f"{cpu_ms:.1f} ms, corners within {px:.2e} px, rms {d_rms:.1e} relative",
+                  flush=True)
+            if mt == "KANNALA_BRANDT":
+                # The bundle's Jacobian at the solution, both AD modes, on the card.
+                kw = dict(dtype=torch.float64, device=device)
+                poses = [cal._board_pnp(torch.as_tensor(p, **kw), mt, o, i)
+                         for o, i in zip(objs, imgs)]
+                q = torch.as_tensor(np.stack([gpl._rotation_to_quat(R) for R, _ in poses]), **kw)
+                t = torch.as_tensor(np.stack([t_ for _, t_ in poses]), **kw)
+                _, residual = cal._board_residual(project, torch.as_tensor(np.stack(objs), **kw),
+                                                  torch.as_tensor(np.stack(imgs), **kw), len(p))
+                x = (torch.zeros(len(p) + 6 * n_views, **kw), torch.as_tensor(p, **kw), q, t)
+                jf = torch.func.jacfwd(residual)(*x)
+                jr = torch.func.jacrev(residual)(*x)
+                jac = dict(fwd_ms=_host_ms(lambda: torch.func.jacfwd(residual)(*x), 5, device),
+                           rev_ms=_host_ms(lambda: torch.func.jacrev(residual)(*x), 5, device),
+                           residual_ms=_host_ms(lambda: residual(*x), 5, device),
+                           shape=tuple(jf.shape),
+                           agree=float((jf - jr).abs().max() / jf.abs().max()))
+                _check(jac["agree"] < 1e-12, f"jacfwd and jacrev disagree: {jac['agree']}")
+                out["jacobian"] = jac
+                print(f"[phase 10] bundle Jacobian {jac['shape']} on {device}: jacfwd "
+                      f"{jac['fwd_ms']:.2f} ms, jacrev {jac['rev_ms']:.2f} ms, the residual "
+                      f"alone {jac['residual_ms']:.2f} ms (host clock, median of 5); the two "
+                      f"agree to {jac['agree']:.1e}", flush=True)
+    finally:
+        cal._refine_board_joint = refine
+    out.update(phase_pose_calibration(device))
+    return out
+
+
+def phase_pose_calibration(device):
+    """refine_extrinsics (the reference test's pinhole scene) and
+    calibrate_camera_odometry over ODO_VIEWS views on the card, against the
+    ground truth at the reference tests' bars."""
+    from mobile_slam_tpu_torch.models.cameras import calibration as cal, pinhole
+    from mobile_slam_tpu_torch.utils import rotations as rot
+
+    kw = dict(dtype=torch.float64, device="cpu")
+    params = pinhole.make_params(460.0, 458.0, 376.0, 240.0, -0.28, 0.07, 1e-4, -2e-4, **kw)
+
+    def R(q):
+        return rot.quat_to_rot(torch.as_tensor(q, dtype=torch.float64)).numpy()
+
+    rng = np.random.default_rng(5)
+    wp = np.stack([rng.uniform(-2, 2, 200), rng.uniform(-2, 2, 200), rng.uniform(0, 1, 200)], -1)
+    q_true = np.array([np.cos(0.15), 0.1, np.sin(0.15), 0.05])
+    q_true /= np.linalg.norm(q_true)
+    t_true = np.array([0.3, -0.2, 4.0])
+    uv = pinhole.project(params, torch.as_tensor(wp @ R(q_true).T + t_true)).numpy()
+    t0 = time.perf_counter()
+    q, t, rms0, rms1 = cal.refine_extrinsics("PINHOLE", params, [1.0, 0, 0, 0], [0, 0, 3.5], wp,
+                                             uv, iters=40, device=device)
+    ext_ms = 1e3 * (time.perf_counter() - t0)
+    _check(rms1 < 1e-5 and np.abs(t - t_true).max() < 1e-4 and abs(abs(q @ q_true) - 1) < 1e-8,
+           f"refine_extrinsics: rms {rms1}, t {t} against {t_true}")
+
+    rng = np.random.default_rng(11)
+    V, N = ODO_VIEWS, 120
+    q_oc = np.array([np.cos(0.2), 0.1, np.sin(0.2), -0.05])
+    q_oc /= np.linalg.norm(q_oc)
+    t_oc = np.array([0.12, -0.06, 0.30])
+    odo_q = np.stack([[np.cos(0.075 * i), 0.0, 0.0, np.sin(0.075 * i)] for i in range(V)])
+    odo_t = np.stack([[0.4 * i, 0.1 * i, 0.0] for i in range(V)])
+    wps, uvs = [], []
+    for i in range(V):
+        pc = np.stack([rng.uniform(-1.5, 1.5, N), rng.uniform(-1.0, 1.0, N),
+                       rng.uniform(2.0, 6.0, N)], -1)
+        wps.append((pc @ R(q_oc).T + t_oc) @ R(odo_q[i]).T + odo_t[i])
+        uvs.append(pinhole.project(params, torch.as_tensor(pc)).numpy())
+    box = lambda q_, d: rot.quat_boxplus(torch.as_tensor(q_), torch.as_tensor(d)).numpy()
+    oq0, ot0 = odo_q.copy(), odo_t.copy()
+    for i in range(1, V):
+        oq0[i] = box(odo_q[i], rng.uniform(-0.03, 0.03, 3))
+        ot0[i] = odo_t[i] + rng.uniform(-0.05, 0.05, 3)
+    t0 = time.perf_counter()
+    q_r, t_r, _, ot_r, o_rms0, o_rms1 = cal.calibrate_camera_odometry(
+        "PINHOLE", params, box(q_oc, [0.05, -0.04, 0.06]), t_oc + [0.05, 0.08, -0.06], oq0, ot0,
+        np.stack(wps), np.stack(uvs), iters=40, device=device)
+    odo_ms = 1e3 * (time.perf_counter() - t0)
+    _check(o_rms0 > 1.0 and o_rms1 < 1e-4 and np.abs(t_r - t_oc).max() < 1e-3
+           and abs(abs(q_r @ q_oc) - 1) < 1e-6 and np.abs(ot_r[2] - odo_t[2]).max() < 1e-3,
+           f"calibrate_camera_odometry: rms {o_rms0} -> {o_rms1}, t_oc {t_r} against {t_oc}")
+    print(f"[phase 10] refine_extrinsics (200 points, 40 iterations) on {device}: rms "
+          f"{rms0:.2f} -> {rms1:.2e} px, t within {np.abs(t - t_true).max():.1e} m, "
+          f"{ext_ms:.1f} ms; calibrate_camera_odometry ({V} views x {N} points, 40 "
+          f"iterations): rms {o_rms0:.2f} -> {o_rms1:.2e} px, t_oc within "
+          f"{np.abs(t_r - t_oc).max():.1e} m, {odo_ms:.1f} ms", flush=True)
+    return dict(extrinsics_ms=ext_ms, odometry_ms=odo_ms, odometry_rms=o_rms1)
+
+
+def phase_adversarial(lk, cfg, arms=ADV_ARMS, device="cuda"):
+    """(b) The adversarial curve through the port's ChunkedImageServer, as
+    bench.py's _image_path_recovering runs it: per arm, the oracle-rendered
+    sequence (seed ADV_SEED) streamed frame by frame with its IMU, chunks of
+    ADV_CHUNK, rebuild-and-replay of a failed chunk tail."""
+    from mobile_slam_tpu_torch.engine.serving import ChunkedImageServer
+    from mobile_slam_tpu_torch.eval import adversarial as adv
+    from mobile_slam_tpu_torch.eval import simulation as sim
+    from mobile_slam_tpu_torch.eval.evaluator import compute_ate
+
+    r_ic, t_ic = cfg.camera.r_ic_mat, np.asarray(cfg.camera.t_ic_vec)
+    out = {"arms": []}
+    lk.reset_launch_counts()
+    loop = {"frames": 0, **{k: 0 for k in LK_PER_FRAME}}
+    streamed = 0
+    for level, seconds in arms:
+        nuis = adv.LEVELS[level]
+        scfg = sim.SimConfig(duration=seconds, cam_rate=20.0, imu_rate=200.0, num_landmarks=900,
+                             max_features=150, acc_noise=0.02, gyr_noise=0.002, pixel_noise=0.0,
+                             acc_bias=(0.01, -0.005, 0.015), gyr_bias=(0.001, -0.0005, 0.0008),
+                             seed=ADV_SEED)      # bench.py:511-517
+        data = adv.make_adversarial_data(scfg, cfg.camera, r_ic, t_ic, nuis)
+        movers = adv.make_movers(nuis)
+        t0 = time.perf_counter()
+        frames = [adv.render_frame_adversarial(data, fi, cfg.camera, r_ic, t_ic, nuis, movers)
+                  for fi in range(len(data.cam_ts))]
+        render_s = time.perf_counter() - t0
+        server = ChunkedImageServer(cfg, device=device, dtype=torch.float32, chunk_size=ADV_CHUNK)
+        step = server._step
+
+        def counted_step(carry, inputs, ransac_draws=None, step=step):
+            before = dict(lk.launch_counts)
+            res = step(carry, inputs, ransac_draws)
+            loop["frames"] += inputs.img.shape[0]
+            for k in LK_PER_FRAME:
+                loop[k] += lk.launch_counts[k] - before[k]
+            return res
+
+        server._step = counted_step
+        est_ts, est_p, imu_i = [], [], 0
+        t0 = time.perf_counter()
+        for fi, img in enumerate(frames):
+            imu_i = _feed_imu(server, data, imu_i, data.cam_ts[fi])
+            for r in server.process_frame(img, data.cam_ts[fi]):
+                if r.ok:
+                    est_ts.append(r.ts)
+                    est_p.append(r.p)
+        for r in server.flush():
+            if r.ok:
+                est_ts.append(r.ts)
+                est_p.append(r.p)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        streamed += server.frames_streamed
+        est_p = np.asarray(est_p, np.float64)
+        _check(len(est_p) > 10 and bool(np.isfinite(est_p).all()),
+               f"level {level}: {len(est_p)} poses, finite {np.isfinite(est_p).all()}")
+        ate = compute_ate(np.asarray(est_ts), est_p, data.cam_ts, data.gt_p, with_scale=True)
+        if level == 0:
+            _check(ate.rmse < ATE_TOL, f"level 0 (clean oracle) ATE {ate.rmse} m")
+        arm = dict(level=level, seconds=seconds, frames=len(frames), poses=len(est_p),
+                   ate=float(ate.rmse), fps=len(frames) / wall, render_s=render_s,
+                   recoveries=server.n_recoveries, replay_ms=list(server.replay_ms),
+                   chunks=server.n_chunks, streamed=server.frames_streamed)
+        out["arms"].append(arm)
+        print(f"[phase 10] adversarial level {level}, {seconds} s, seed {ADV_SEED}: "
+              f"{arm['poses']} poses of {arm['frames']} frames, ATE sim3 {arm['ate']:.4f} m over "
+              f"{ate.num_pairs} pairs, {arm['fps']:.3f} fps, rendered in {render_s:.1f} s, "
+              f"{server.n_chunks} chunks of {ADV_CHUNK}, {server.frames_streamed} frames "
+              f"streamed, {server.n_recoveries} recoveries, replay ms "
+              f"{[round(x, 1) for x in server.replay_ms]} (JAX: {ADV_JAX})", flush=True)
+    counts = dict(lk.launch_counts)
+    for k, n in LK_PER_FRAME.items():
+        _check(counts[k] == n * (loop["frames"] + streamed),
+               f"adversarial {k}: {counts[k]} launches over {loop['frames']} chunk-loop + "
+               f"{streamed} streamed frames")
+    out.update(counts=counts, loop_frames=loop["frames"], streamed=streamed)
+    print(f"[phase 10] adversarial launches {counts} over {loop['frames']} chunk-loop frames "
+          f"(padding included) + {streamed} streamed (replays included)", flush=True)
+    return out
+
+
 def main() -> int:
     smi_line = phase_device()
     from mobile_slam_tpu_torch.engine import example
@@ -2233,12 +2590,17 @@ def main() -> int:
     ransac_arms = phase_ransac(lk, pair, cfg)
     cams = phase_cameras(lk, sim, example, make_camera)
     tp = phase_tp_solver(stream, cfg)
+    t10 = time.perf_counter()
+    calib = phase_calibration()
+    adver = phase_adversarial(lk, cfg)
+    print(f"[phase 10] took {time.perf_counter() - t10:.1f} s", flush=True)
     for k in LK_PER_FRAME:
         kernels[k].update(launches=cli_run["counts"][k], launches_serving=serve["counts"][k],
                           launches_streaming=stream["counts"][k],
                           launches_fleet=fleet["counts"][k],
                           launches_gateway=gate["counts"][k],
-                          launches_mei=cams["counts"][k], **fleet_k[k],
+                          launches_mei=cams["counts"][k],
+                          launches_adversarial=adver["counts"][k], **fleet_k[k],
                           **{f"mobile_{n}": v for n, v in mobile_k[k].items()})
     print(f"[summary] streaming {stream['ms_per_frame']:.2f} ms per tracking frame, "
           f"{stream['syncs_per_frame']:.1f} host syncs per frame; chunked "
@@ -2259,7 +2621,11 @@ def main() -> int:
           f"(float32 ms per solve_and_slide, host syncs, LM iterations) "
           f"{ {k: (round(v['ms'], 2), v['syncs'], v['iterations']) for k, v in arms.items()} }; "
           f"RANSAC lu {ransac_arms['lu']['ms']:.3f} ms / eigh {ransac_arms['eigh']['ms']:.3f} ms; "
-          f"Mei ATE {cams['ate']:.4f} m; tp_damped_step dx {tp['dx_rel']:.1e}", flush=True)
+          f"Mei ATE {cams['ate']:.4f} m; tp_damped_step dx {tp['dx_rel']:.1e}; calibration rms "
+          f"{ {k: round(v['rms'], 4) for k, v in calib.items() if isinstance(v, dict) and 'rms' in v} } px; "
+          f"adversarial (level: ATE m, poses, frames, recoveries) "
+          f"{ {a['level']: (round(a['ate'], 4), a['poses'], a['frames'], a['recoveries']) for a in adver['arms']} }",
+          flush=True)
     _check("jax" not in sys.modules, "jax was imported")
     _check(not any(m == "mobile_slam_tpu" or m.startswith("mobile_slam_tpu.")
                    for m in sys.modules), "the JAX package was imported")

@@ -76,6 +76,7 @@ class ChunkedImageServer:
         self.chunk_wall_s = 0.0   # cumulative wall time of chunk calls
         self.frames_chunked = 0   # real (not padding) frames through chunks
         self.frames_streamed = 0  # engine.process_frame calls, replays included
+        self.replay_ms: list[float] = []  # host clock of each rebuild + tail replay
 
     # -- IMU ------------------------------------------------------------
 
@@ -188,6 +189,7 @@ class ChunkedImageServer:
                 break
             tail += 1
         if tail >= self.recover_tail:
+            t_replay = time.perf_counter()
             self._recover()
             k0 = n_real - tail
             self._replaying = True
@@ -208,6 +210,7 @@ class ChunkedImageServer:
                                   results[k]._replace(ok=False, chunked=False))
             finally:
                 self._replaying = False
+            self.replay_ms.append(1e3 * (time.perf_counter() - t_replay))
             if self._stable >= self.stable_frames:
                 self._enter_chunked()
         return results

@@ -1,7 +1,9 @@
 """Offline visualization, the port's copy of
-mobile_slam_tpu.eval.visualizer's trajectory view: the reference's Pangolin
-viewer (src/utility/visualizer.cpp: trajectory, camera frustum) rendered to
-a matplotlib figure or PNG. ``VIOSystem._save_plots`` draws with it; on a
+mobile_slam_tpu.eval.visualizer: the reference's Pangolin viewer
+(src/utility/visualizer.cpp: trajectory, camera frustum) and its IMU
+time-series graph rendered to a matplotlib figure or PNG, and a run
+directory's trajectory (``plot_run_dir``). matplotlib is imported at the
+first plot. ``VIOSystem._save_plots`` draws with it; on a
 machine without matplotlib the run skips its plots.
 """
 
@@ -62,3 +64,39 @@ def _draw_frustum(ax, pose, scale=0.15):
     ]) * scale
     pts = corners @ pose[:3, :3].T + pose[:3, 3]
     ax.plot(*pts.T, lw=1.0, color="red")
+
+
+def plot_imu_series(
+    ts: np.ndarray, acc: np.ndarray, gyr: np.ndarray,
+    save: str | None = None, no_display: bool = True,
+):
+    """Accelerometer/gyroscope time series (IMUGraphVisualizer parity)."""
+    plt = _mpl(no_display)
+    fig, (a1, a2) = plt.subplots(2, 1, figsize=(10, 6), sharex=True)
+    for i, lbl in enumerate("xyz"):
+        a1.plot(ts, np.asarray(acc)[:, i], lw=0.7, label=f"acc {lbl}")
+        a2.plot(ts, np.asarray(gyr)[:, i], lw=0.7, label=f"gyr {lbl}")
+    a1.set_ylabel("m/s²")
+    a2.set_ylabel("rad/s")
+    a2.set_xlabel("t [s]")
+    a1.legend(ncol=3)
+    a2.legend(ncol=3)
+    a1.set_title("IMU")
+    if save:
+        fig.savefig(save, dpi=130, bbox_inches="tight")
+    return fig
+
+
+def plot_run_dir(run_dir: str, gt_csv: str | None = None,
+                 save: str | None = None):
+    """Visualize a logs/<ts>/ run directory's trajectory (and the ground
+    truth of an EuRoC ``data.csv``)."""
+    from mobile_slam_tpu_torch.io.trajectory import read_tum
+
+    ts, p, q = read_tum(f"{run_dir}/trajectory_pose.txt")
+    gt_p = None
+    if gt_csv:
+        from mobile_slam_tpu_torch.io.dataset import load_ground_truth_csv
+
+        gt_p = load_ground_truth_csv(gt_csv).p
+    return plot_trajectory_3d(p, gt_positions=gt_p, save=save)

@@ -1,12 +1,14 @@
 """IMU preintegration (torch twin of mobile_slam_tpu.imu.preintegration).
 
 Midpoint integration of (Δp, Δq, Δv), the 15x15 bias Jacobian and the 15x15
-covariance through the 18x18 noise model (IntegrationBase). The reference's
+covariance through the 18x18 noise model (IntegrationBase).
+``preintegrate`` / ``propagate_state`` are the reference's sequential scans
+as Python loops over one interval's samples. The reference's
 parallel-prefix form is kept — per-step quantities batched over the M
 samples — with its two ``lax.associative_scan``s (the rotation chain and the
 (F, W) affine composition) written as sequential loops over the at most
-``max_imu_per_interval`` samples. Every function takes leading batch dims
-(window slots): dt (..., M), acc/gyr (..., M, 3), count (...).
+``max_imu_per_interval`` samples. The parallel forms take leading batch
+dims (window slots): dt (..., M), acc/gyr (..., M, 3), count (...).
 """
 
 from __future__ import annotations
@@ -56,6 +58,67 @@ def identity_preintegration(ba: torch.Tensor, bg: torch.Tensor) -> Preintegratio
         sum_dt=torch.zeros(batch, **kw),
         lin_ba=ba, lin_bg=bg,
     )
+
+
+def _midpoint_step(carry, dt, acc_1, gyr_1, active, lin_ba, lin_bg, noise):
+    """One midpoint-integration step of one interval (IntegrationBase::
+    midPointIntegration); an inactive sample leaves the carry as it is."""
+    dp, dq, dv, jac, cov, sum_dt, acc_0, gyr_0 = carry
+    un_acc_0 = rot.quat_rotate(dq, acc_0 - lin_ba)
+    un_gyr = 0.5 * (gyr_0 + gyr_1) - lin_bg
+    r_dq = rot.quat_mul(dq, rot.delta_q(un_gyr * dt))
+    un_acc_1 = rot.quat_rotate(r_dq, acc_1 - lin_ba)
+    un_acc = 0.5 * (un_acc_0 + un_acc_1)
+    r_dp = dp + dv * dt + 0.5 * un_acc * dt * dt
+    r_dv = dv + un_acc * dt
+
+    r_w = rot.skew(un_gyr)
+    r_a0 = rot.skew(acc_0 - lin_ba)
+    r_a1 = rot.skew(acc_1 - lin_ba)
+    R0 = rot.quat_to_rot(dq)
+    R1 = rot.quat_to_rot(r_dq)
+    eye3 = torch.eye(3, dtype=dp.dtype, device=dp.device)
+    dt2 = dt * dt
+    I_left = eye3 - r_w * dt
+    R1_ra1 = R1 @ r_a1
+    Z = None    # a zero block
+    Fm = _block_matrix((3, 3), [     # block rows and columns P, R, V, BA, BG
+        [eye3, -0.25 * R0 @ r_a0 * dt2 - 0.25 * R1_ra1 @ I_left * dt2, eye3 * dt,
+         -0.25 * (R0 + R1) * dt2, 0.25 * R1_ra1 * dt2 * dt],
+        [Z, I_left, Z, Z, -eye3 * dt],
+        [Z, -0.5 * R0 @ r_a0 * dt - 0.5 * R1_ra1 @ I_left * dt, eye3,
+         -0.5 * (R0 + R1) * dt, 0.5 * R1_ra1 * dt * dt],
+        [Z, Z, Z, eye3, Z],
+        [Z, Z, Z, Z, eye3]])
+    v03 = -0.125 * R1_ra1 * dt2 * dt
+    v63 = -0.25 * R1_ra1 * dt * dt
+    V = _block_matrix((3, 3), [      # noise columns a0, g0, a1, g1, ba, bg
+        [0.25 * R0 * dt2, v03, 0.25 * R1 * dt2, v03, Z, Z],
+        [Z, 0.5 * eye3 * dt, Z, 0.5 * eye3 * dt, Z, Z],
+        [0.5 * R0 * dt, v63, 0.5 * R1 * dt, v63, Z, Z],
+        [Z, Z, Z, Z, eye3 * dt, Z],
+        [Z, Z, Z, Z, Z, eye3 * dt]])
+    new = (r_dp, rot.quat_normalize(r_dq), r_dv, Fm @ jac,
+           Fm @ cov @ Fm.T + V @ noise @ V.T, sum_dt + dt, acc_1, gyr_1)
+    return tuple(torch.where(active, n, o) for n, o in zip(new, carry))
+
+
+def preintegrate(acc0, gyr0, dt, acc, gyr, count, lin_ba, lin_bg,
+                 noise) -> Preintegration:
+    """Preintegrate one interval sample by sample (the reference's
+    sequential scan; ``preintegrate_parallel`` is the batched form):
+    IntegrationBase(acc0, gyr0, ba, bg) then push_back of the ``count``
+    valid readings of dt (M,), acc / gyr (M, 3)."""
+    kw = dict(dtype=acc0.dtype, device=acc0.device)
+    count = torch.as_tensor(count, device=acc0.device)
+    carry = (torch.zeros(3, **kw), _identity_quat(acc0), torch.zeros(3, **kw),
+             torch.eye(15, **kw), torch.zeros((15, 15), **kw),
+             torch.zeros((), **kw), acc0, gyr0)
+    for i in range(dt.shape[0]):
+        carry = _midpoint_step(carry, dt[i], acc[i], gyr[i], i < count,
+                               lin_ba, lin_bg, noise)
+    dp, dq, dv, jac, cov, sum_dt, _, _ = carry
+    return Preintegration(dp, dq, dv, jac, cov, sum_dt, lin_ba, lin_bg)
 
 
 def _prefix_quat(dq_step: torch.Tensor) -> torch.Tensor:
@@ -232,6 +295,28 @@ def propagate_state_parallel(p, q, v, ba, bg, prev_acc, prev_gyr, dt, acc,
     return (_select_last(p_all, count, p), _select_last(q_all, count, q),
             _select_last(v_all, count, v), _select_last(acc, count, prev_acc),
             _select_last(gyr, count, prev_gyr))
+
+
+def propagate_state(p, q, v, ba, bg, prev_acc, prev_gyr, dt, acc, gyr,
+                    count, gravity):
+    """World-frame forward propagation of the window tip across new
+    readings, sample by sample (Estimator::propagateIMUState: trapezoidal
+    acceleration, midpoint gyro; ``propagate_state_parallel`` is the
+    batched form). Returns (p, q, v, last_acc, last_gyr)."""
+    count = torch.as_tensor(count, device=p.device)
+    acc_0, gyr_0 = prev_acc, prev_gyr
+    for i in range(dt.shape[0]):
+        dt_i, acc_1, gyr_1 = dt[i], acc[i], gyr[i]
+        un_acc_0 = rot.quat_rotate(q, acc_0 - ba) - gravity
+        un_gyr = 0.5 * (gyr_0 + gyr_1) - bg
+        q_new = rot.quat_normalize(rot.quat_mul(q, rot.delta_q(un_gyr * dt_i)))
+        un_acc_1 = rot.quat_rotate(q_new, acc_1 - ba) - gravity
+        un_acc = 0.5 * (un_acc_0 + un_acc_1)
+        new = (p + dt_i * v + 0.5 * dt_i * dt_i * un_acc, q_new,
+               v + dt_i * un_acc, acc_1, gyr_1)
+        p, q, v, acc_0, gyr_0 = (torch.where(i < count, n, o) for n, o in
+                                 zip(new, (p, q, v, acc_0, gyr_0)))
+    return p, q, v, acc_0, gyr_0
 
 
 def evaluate(pre: Preintegration, p_i, q_i, v_i, ba_i, bg_i, p_j, q_j, v_j,

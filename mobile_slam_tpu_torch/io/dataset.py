@@ -188,6 +188,15 @@ class EurocDataset:
             self._depth = hdr.bit_depth
         return self._depth == 8
 
+    def image_stream(self, width: int, height: int, prefetch: int = 6):
+        """Sequential image stream, yields (index, image): decoded ahead by
+        the native loader's worker thread where it decodes this sequence
+        (8-bit images), by ``read_image`` one after another otherwise."""
+        if self._native and self._native_decodes():
+            return self._nl.PrefetchingImageStream(
+                self.image_dir, self.images.filenames, width, height, prefetch)
+        return ((i, self.read_image(i)) for i in range(len(self)))
+
     def imu_between(self, t0: float, t1: float):
         """IMU samples with ts in (t0, t1] (measurement_processor.cpp:272-286).
         Returns (ts, acc, gyr)."""

@@ -1,7 +1,8 @@
 """ctypes bindings for the native data-loading runtime (native/loader.cpp),
 the torch port's copy of mobile_slam_tpu.io.native_loader.
 
-Provides fast CSV parsing and 8-bit PNG/PGM grayscale decoding.
+Provides fast CSV parsing, 8-bit PNG/PGM grayscale decoding and a
+background prefetching image stream (``PrefetchingImageStream``).
 ``ensure_built()`` compiles the repo's ``native/loader.cpp`` with g++ (and
 zlib) on first use into the git-ignored ``mobile_slam_tpu_torch/_build/``
 (``build_library``, which io/png.py uses too); when that fails, callers use
@@ -71,6 +72,12 @@ def ensure_built() -> bool:
     lib.msp_decode_image.restype = ctypes.c_int
     lib.msp_decode_image.argtypes = [ctypes.c_char_p, ctypes.c_void_p,
                                      ctypes.c_int, ctypes.c_int]
+    lib.msp_open.restype = ctypes.c_void_p
+    lib.msp_open.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_int]
+    lib.msp_next.restype = ctypes.c_long
+    lib.msp_next.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.msp_close.argtypes = [ctypes.c_void_p]
     lib.msp_free.argtypes = [ctypes.c_void_p]
     _lib = lib
     return True
@@ -122,3 +129,44 @@ def decode_image(path: str, width: int, height: int) -> np.ndarray:
     if rc != 0:
         raise IOError(f"decode failed ({rc}) for {path}")
     return out
+
+
+class PrefetchingImageStream:
+    """Sequential 8-bit image stream decoded ``prefetch`` frames ahead by a
+    worker thread of the native loader (the reference's worker ring buffer,
+    web/js/vio-worker.js:72-165). Iterates (index, (H, W) uint8); a frame
+    that fails to decode is skipped."""
+
+    def __init__(self, image_dir: str, filenames: list[str], width: int,
+                 height: int, prefetch: int = 4):
+        assert ensure_built()
+        self.width = width
+        self.height = height
+        joined = "\n".join(filenames).encode()
+        self._h = _lib.msp_open(image_dir.encode(), joined, width, height,
+                                prefetch)
+        if not self._h:
+            raise IOError("msp_open failed")
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        out = np.empty((self.height, self.width), np.uint8)
+        while True:
+            idx = _lib.msp_next(self._h, out.ctypes.data_as(ctypes.c_void_p))
+            if idx == -1:
+                raise StopIteration
+            if idx != -2:       # -2: decode error, the frame is skipped
+                return int(idx), out
+
+    def close(self):
+        if self._h:
+            _lib.msp_close(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass

@@ -50,6 +50,13 @@ def lift(params: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
                         torch.cos(theta)], dim=-1)
 
 
+def lift_unit_plane(params: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Pixel(s) -> ray normalized to z=1 (the 7-vector convention the
+    estimator consumes)."""
+    ray = lift(params, uv)
+    return ray / ray[..., 2:3]
+
+
 def make_params(mu, mv, u0, v0, k2=0.0, k3=0.0, k4=0.0, k5=0.0, *,
                 dtype=torch.float32, device) -> torch.Tensor:
     return torch.tensor([mu, mv, u0, v0, k2, k3, k4, k5], dtype=dtype,

@@ -44,6 +44,9 @@ class FeatureTable(NamedTuple):
     def used_num(self) -> torch.Tensor:
         return torch.sum(self.mask, dim=-1).to(torch.int32)
 
+    def slot_used(self) -> torch.Tensor:
+        return self.fid >= 0
+
 
 def init_window(max_imu: int, *, dtype=torch.float32, device) -> WindowState:
     W = NUM_SLOTS

@@ -83,3 +83,12 @@ def box_filter(img: torch.Tensor, size: int) -> torch.Tensor:
     """size x size box sum (not normalized), reflect-101 borders."""
     k = (1.0,) * size
     return _sep_filter(img, k, k)
+
+
+def downsample2x(img: torch.Tensor) -> torch.Tensor:
+    """2x2 box downsample (the mobile app's preprocessing,
+    web/js/app.js:337); an odd last row or column is dropped."""
+    h2 = (img.shape[0] // 2) * 2
+    w2 = (img.shape[1] // 2) * 2
+    c = img[:h2, :w2]
+    return 0.25 * (c[0::2, 0::2] + c[0::2, 1::2] + c[1::2, 0::2] + c[1::2, 1::2])

@@ -346,6 +346,56 @@ def extract_patches_ref(img: torch.Tensor, centers: torch.Tensor, window: int):
     return t.reshape(k, n), gx.reshape(k, n), gy.reshape(k, n)
 
 
+def track_level(prev_img, next_img, prev_pts, guess, params: LKParams, active):
+    """One pyramid level of plain iterative KLT (the reference's non-Pallas
+    ``ops/lk.py:track_level``; no kernel stands behind it and the tracker
+    does not call it): bilinear window patches (border-clamped sampling),
+    Scharr gradients of the whole image (reflect-101), the structure
+    tensor's min-eigenvalue gate, ``params.iters`` masked Gauss-Newton steps
+    from ``guess`` that freeze converged points. prev_pts / guess (K, 2),
+    active (K,) bool. Returns (positions (K, 2), ok (K,))."""
+    from mobile_slam_tpu_torch.ops import image as im
+
+    dtype, dev = prev_img.dtype, prev_img.device
+    win2 = params.window * params.window
+    o = torch.arange(params.window, dtype=dtype, device=dev) - (params.window - 1) / 2.0
+    oy, ox = torch.meshgrid(o, o, indexing="ij")
+    offsets = torch.stack([ox, oy], dim=-1).reshape(-1, 2)     # (win², 2)
+
+    def patch(img, centers):
+        return im.bilinear_sample(img, centers[:, None, :] + offsets[None, :, :])
+
+    ix, iy = im.scharr_derivatives(prev_img)
+    t_patch = patch(prev_img, prev_pts)
+    gx = patch(ix, prev_pts)
+    gy = patch(iy, prev_pts)
+    gxx = torch.sum(gx * gx, dim=1)
+    gxy = torch.sum(gx * gy, dim=1)
+    gyy = torch.sum(gy * gy, dim=1)
+    det = gxx * gyy - gxy * gxy
+    tr = gxx + gyy
+    min_eig = 0.5 * (tr - torch.sqrt(torch.clamp(tr * tr - 4 * det, min=0.0))) / win2
+    invertible = min_eig > params.min_eig_threshold
+    inv_det = torch.where(torch.abs(det) > 1e-12, 1.0 / det, torch.zeros_like(det))
+
+    pos = guess
+    converged = torch.zeros(guess.shape[0], dtype=torch.bool, device=dev)
+    for _ in range(params.iters):
+        diff = patch(next_img, pos) - t_patch
+        b1 = torch.sum(diff * gx, dim=1)
+        b2 = torch.sum(diff * gy, dim=1)
+        delta = torch.stack([-(gyy * b1 - gxy * b2) * inv_det,
+                             -(gxx * b2 - gxy * b1) * inv_det], dim=-1)
+        step_ok = active & invertible & ~converged
+        pos = torch.where(step_ok[:, None], pos + delta, pos)
+        converged = converged | (torch.sum(delta * delta, dim=-1) <= params.eps * params.eps)
+    h, w = prev_img.shape
+    inside = ((pos[:, 0] >= 0) & (pos[:, 0] < w - 1)
+              & (pos[:, 1] >= 0) & (pos[:, 1] < h - 1))
+    ok = active & invertible & inside & torch.all(torch.isfinite(pos), dim=-1)
+    return pos, ok
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels: build at first use, bind through ctypes
 # ---------------------------------------------------------------------------

@@ -1,11 +1,12 @@
-"""GPU tier of the PyTorch port: ``pytest -m cuda tests/test_torch_cuda.py``.
+"""GPU tier of the PyTorch port: ``pytest -m cuda tests/test_torch_cuda.py``
+(``--noconftest`` on a machine without JAX: tests/conftest.py imports it).
 
 Runs chip_smoke.py in a subprocess: it builds the CUDA kernels, holds
 each against its plain PyTorch version at main-path shapes and drives the
 port's engine and chunked server over the bench sequence. The subprocess
 exits with 42 when no CUDA device is present, and the test then skips; the
-probe-kernel and fleet-kernel tests decide inside themselves and skip
-without a card too.
+probe-kernel, fleet-kernel, calibration and adversarial-frame tests decide
+inside themselves and skip without a card too.
 """
 
 import os
@@ -140,3 +141,65 @@ def test_lk_kernels_at_the_gateway_shapes():
     assert float((pk - pp)[m].norm(dim=-1).max()) < 0.02
     assert float((rk - rp)[m].abs().max()) < 0.05
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_calibration_on_the_card_matches_the_cpu():
+    """calibrate_from_board for the Kannala-Brandt camera of
+    configs/tum_vi_room1.yaml from 10 board views (0.1 px noise) on the card
+    at float64, against the same call on the CPU: every corner's
+    projection within chip_smoke.CALIB_CPU_PX, the RMS within
+    CALIB_RMS_RTOL, and the reference test's bar (RMS < 0.5 px, focal within
+    5%)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+    from mobile_slam_tpu_torch.models.cameras import calibration as cal
+
+    true, w, h, opts, bar = cs.calibration_cameras()["KANNALA_BRANDT"]
+    objs, imgs, pcs = cs.board_views(cal._PROJECT["KANNALA_BRANDT"], true, w, h, 10, **opts)
+    args = ("KANNALA_BRANDT", cs.BOARD, objs, imgs, w, h)
+    p, rms = cal.calibrate_from_board(*args, device="cuda")
+    p_cpu, rms_cpu = cal.calibrate_from_board(*args, device="cpu")
+    pts = torch.as_tensor(pcs)
+    px = float((cal._PROJECT["KANNALA_BRANDT"](torch.as_tensor(p), pts)
+                - cal._PROJECT["KANNALA_BRANDT"](torch.as_tensor(p_cpu), pts)).abs().max())
+    assert px <= cs.CALIB_CPU_PX and abs(rms - rms_cpu) <= cs.CALIB_RMS_RTOL * rms_cpu
+    assert bar(true.numpy(), p, rms)
+
+
+@pytest.mark.cuda
+def test_adversarial_frame_feeds_the_server_on_the_card():
+    """One level-0 adversarial frame (the oracle renderer, bench.py's
+    sequence, seed 11) through the port's ChunkedImageServer on the card:
+    the frame streams through the engine, K1 launches once and K2 / K3
+    twice."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from mobile_slam_tpu_torch.engine.example import bench_config
+    from mobile_slam_tpu_torch.engine.serving import ChunkedImageServer
+    from mobile_slam_tpu_torch.eval import adversarial as adv
+    from mobile_slam_tpu_torch.eval import simulation as sim
+    from mobile_slam_tpu_torch.ops import lk
+
+    cfg = bench_config()
+    cam, nuis = cfg.camera, adv.LEVELS[0]
+    data = adv.make_adversarial_data(sim.SimConfig(duration=0.2, num_landmarks=900, seed=11),
+                                     cam, cam.r_ic_mat, np.asarray(cam.t_ic_vec), nuis)
+    img = adv.render_frame_adversarial(data, 0, cam, cam.r_ic_mat, np.asarray(cam.t_ic_vec),
+                                       nuis)
+    server = ChunkedImageServer(cfg, chunk_size=25)
+    for i in np.flatnonzero(data.imu_ts <= data.cam_ts[0] + 1e-9):
+        server.push_imu(data.imu_ts[i], data.imu_acc[i], data.imu_gyr[i])
+    lk.reset_launch_counts()
+    server.process_frame(img, data.cam_ts[0])
+    torch.cuda.synchronize()
+    assert server.frames_streamed == 1 and server.mode == "stream"
+    assert lk.launch_counts == {"track_pyramidal": 1, "refine_template": 2,
+                                "extract_patches": 2}

@@ -34,9 +34,12 @@ from mobile_slam_tpu_torch.solver import assembly
 
 POSE_TOL = 1e-6
 
-# The reference's sequential preintegration as one program: eagerly, its
-# scan compiles anew on every call; jitted, once per file.
+# The reference's preintegration functions as one program each: eagerly,
+# their scans compile op by op on every call; jitted, once per shape.
 _jpreintegrate = jax.jit(jpre.preintegrate)
+_jpreintegrate_parallel = jax.jit(jpre.preintegrate_parallel)
+_jcontinue = jax.jit(jpre.continue_preintegration_parallel)
+_jpropagate_parallel = jax.jit(jpre.propagate_state_parallel)
 
 
 @pytest.fixture(scope="module")
@@ -89,8 +92,8 @@ def test_preintegration_matches(cnt):
     noise = pre.make_noise_cov(0.05, 0.004, 4e-5, 2e-6, dtype=F64, device="cpu")
     args_j = [jnp.asarray(x) for x in (acc0, gyr0, dt, acc, gyr)]
     seq = _jpreintegrate(*args_j, jnp.asarray(cnt), jnp.asarray(ba), jnp.asarray(bg), noise_j)
-    par = jpre.preintegrate_parallel(*args_j, jnp.asarray(cnt), jnp.asarray(ba),
-                                     jnp.asarray(bg), noise_j)
+    par = _jpreintegrate_parallel(*args_j, jnp.asarray(cnt), jnp.asarray(ba),
+                                  jnp.asarray(bg), noise_j)
     got = pre.preintegrate_parallel(*[t64(x) for x in (acc0, gyr0, dt, acc, gyr)],
                                     torch.tensor(cnt), t64(ba), t64(bg), noise)
     _pre_close(seq, got)
@@ -99,9 +102,9 @@ def test_preintegration_matches(cnt):
     k = max(cnt // 2, 1)
     seg = pre.preintegrate_parallel(t64(acc0), t64(gyr0), t64(dt[:k]), t64(acc[:k]),
                                     t64(gyr[:k]), torch.tensor(k), t64(ba), t64(bg), noise)
-    seg_j = jpre.preintegrate_parallel(*[jnp.asarray(x) for x in (acc0, gyr0, dt[:k], acc[:k], gyr[:k])],
-                                       jnp.asarray(k), jnp.asarray(ba), jnp.asarray(bg), noise_j)
-    cont_j = jpre.continue_preintegration_parallel(
+    seg_j = _jpreintegrate_parallel(*[jnp.asarray(x) for x in (acc0, gyr0, dt[:k], acc[:k], gyr[:k])],
+                                    jnp.asarray(k), jnp.asarray(ba), jnp.asarray(bg), noise_j)
+    cont_j = _jcontinue(
         seg_j, jnp.asarray(acc[k - 1]), jnp.asarray(gyr[k - 1]), jnp.asarray(dt),
         jnp.asarray(acc), jnp.asarray(gyr), jnp.asarray(cnt), noise_j)
     cont = pre.continue_preintegration_parallel(
@@ -111,9 +114,9 @@ def test_preintegration_matches(cnt):
     q0 = np.array([0.9, 0.1, -0.2, 0.3]) / np.linalg.norm([0.9, 0.1, -0.2, 0.3])
     state = [np.array([1.0, -2.0, 0.5]), q0, np.array([0.3, 0.1, -0.2]), ba, bg, acc0, gyr0]
     g = np.array([0, 0, 9.81007])
-    out_j = jpre.propagate_state_parallel(*[jnp.asarray(x) for x in state], jnp.asarray(dt),
-                                          jnp.asarray(acc), jnp.asarray(gyr), jnp.asarray(cnt),
-                                          jnp.asarray(g))
+    out_j = _jpropagate_parallel(*[jnp.asarray(x) for x in state], jnp.asarray(dt),
+                                 jnp.asarray(acc), jnp.asarray(gyr), jnp.asarray(cnt),
+                                 jnp.asarray(g))
     out = pre.propagate_state_parallel(*[t64(x) for x in state], t64(dt), t64(acc), t64(gyr),
                                        torch.tensor(cnt), t64(g))
     for a, b in zip(out_j, out):

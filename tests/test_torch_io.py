@@ -10,7 +10,8 @@
    CSVs are byte-equal and the frames the same pixels.
 3. The CSV loaders and ``EurocDataset`` (the pure reader and the native
    one) equal the JAX package's ``EurocDataset(use_native=False)`` on that
-   sequence, images included.
+   sequence, images included, also through ``image_stream`` (the native
+   prefetching stream and the sequential reads).
 4. ``write_tum`` writes the reference's bytes; ``read_tum`` reads them back.
 """
 
@@ -216,6 +217,24 @@ def test_dataset_matches_reference(sequences, use_native):
     for got, want in zip(t.imu_between(1.4e9 + 0.2, 1.4e9 + 0.3),
                          j.imu_between(1.4e9 + 0.2, 1.4e9 + 0.3)):
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("use_native", [False, True])
+def test_image_stream_matches_reference(sequences, use_native):
+    """``image_stream`` yields every (index, image) of the sequence in order,
+    through the native prefetching stream or through ``read_image``, as the
+    reference's pure reader reads them."""
+    ours, _ = sequences
+    t = tds.EurocDataset(ours, use_native=use_native)
+    j = jds.EurocDataset(ours, use_native=False)
+    stream = t.image_stream(512, 512, prefetch=3)
+    assert isinstance(stream, native_loader.PrefetchingImageStream) == use_native
+    got = list(stream)
+    assert [i for i, _ in got] == list(range(len(j)))
+    for (_, img), (_, want) in zip(got, j.image_stream(512, 512)):
+        np.testing.assert_array_equal(img, want)
+    if use_native:
+        stream.close()
 
 
 def test_csv_loaders_match_reference(tmp_path):
