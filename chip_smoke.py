@@ -77,8 +77,9 @@ Phases, each printed as it runs:
    at B = 4 on the bench configuration: four stretches of the bench's
    300-frame sequence from frames 0, 20, 40, 60, each with its own RANSAC
    seed, streamed to chunked mode by its own ChunkedImageServer, their
-   carries stacked and run through make_batched_image_step for 2 chunks of
-   50 frames: every pose finite, each sequence's ATE Sim3 < 0.05 m, its
+   carries stacked and run through make_batched_image_step for 1 chunk of
+   50 frames (2 before phase 11 came): every pose finite, each sequence's
+   ATE Sim3 < 0.05 m, its
    first 3 fleet frames within 1e-4 m of its own single-stream chunk run
    with the same keyframe flags, K1/K2/K3 at 1/2/2 launches per fleet
    frame whatever B is; fleet fps, ms per fleet frame, host syncs per fleet
@@ -88,6 +89,8 @@ Phases, each printed as it runs:
    make_batched_chunked_step, held against its own make_chunked_step run
    over the first 25 frames (first 3 frames within 1e-4 m with the same
    keyframe flags at float64, every frame finite and within 0.05 m).
+   Phase 7 hands its sequences (the carries before its fleet ran, the
+   frames, its float64 and float32 results) to phase 11.
 
 8. the phone entry point (mobile_slam_tpu_torch/web/gateway.py): K1, K2
    and K3 at the gateway's mobile_default shapes (two frames of phase 8's
@@ -146,10 +149,33 @@ Phases, each printed as it runs:
    level 0 over 6 s (ATE Sim3 < 0.05 m), level 2 over 12 s (every pose
    finite); prints poses, ATE, fps, render seconds, recoveries and the
    host-clock ms of each failed-tail replay; K1/K2/K3 at 1/2/2 launches per
-   chunk-loop and streamed frame, replays included.
+   chunk-loop and streamed frame, replays included. (c) a failed chunk tail
+   replayed: 6 s of the bench sequence through ChunkedImageServer in
+   chunks of 25, the first chunk's last 10 frames blank with a 150 m/s^2
+   accelerometer knock (the camera covered, the phone knocked): at least
+   one recovery, the failed frames replayed through
+   process_frame(imu_override=) with their own IMU slices, finite poses
+   after the recovery and a chunk after it; prints the replay's ms.
+
+11. the fleet over ranks (parallel/batch.py's RankMesh, one process per
+   rank through parallel/launch.py): W = max(2, cards) ranks, rank r on
+   card r % cards (NCCL on distinct cards, gloo when they share one);
+   (a) phase 7's image fleet at B = 4, B / W sequences per rank, from phase
+   7's carries and frames: the gathered poses of the first 3 frames at
+   float64 within 1e-9 m of phase 7's world-1 fleet with the same keyframe
+   flags, the float32 chunk's poses finite, each sequence's ATE Sim3 < 0.05
+   m, K1/K2/K3 at 1/2/2 launches per fleet frame on each rank, K1's
+   shared-memory attribute set on the rank's own card, every rank holding
+   the same gathered poses; prints fleet fps, per-sequence fps, ms
+   and host syncs per fleet frame beside phase 7's, and the float32
+   differences; (b) phase 7's feature fleet at B = 8, the same checks
+   (float64 against phase 7's); (c) parallel/dryrun.dryrun_multichip(W)
+   (its landmark-sharded solve only with a card per rank). No rank imports
+   jax or the JAX package.
 
 Prints a JSON line of per-kernel results ("launches": phase 6's pipelined
-run; phases 3, 4, 7, 8, 9's Mei run and 10's adversarial arms beside it,
+run; phases 3, 4, 7, 8, 9's Mei run, 10's adversarial arms and 11's ranks
+(one count per rank) beside it,
 "batched_*" the B = 4
 launch of phase 7, "mobile_*" phase 8's kernel timings), the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}. Any failed check
@@ -207,8 +233,9 @@ FEATURE_FLEET_B = 8  # the feature fleet (bench.py Bf)
 FLEET_PAIRS = ((40, 41), (60, 61), (80, 81))  # bench frame pairs beside phase 2's
 FLEET_STARTS = (0, 20, 40, 60)  # image fleet: each sequence's first frame
 FLEET_SEED = 100    # sequence s: RANSAC generator / pixel-noise seed 100 + s
-FLEET_CHUNKS = 2    # fleet chunks of CHUNK frames
+FLEET_CHUNKS = 1    # fleet chunks of CHUNK frames (2 until phase 11 came: the smoke's time)
 FLEET_CHECK_FRAMES = 3  # fleet frames held to FLEET_POS_TOL of the single run
+FLEET_RANK_TOL = 1e-9   # m, phase 11's fleets over ranks against phase 7's, float64
 FLEET_POS_TOL = 1e-4    # m; later frames only to the ATE bar (the bench ATE is
                         # chaotic in the tracked positions, PERF.md)
 FLEET_CHUNK_TOL = 0.05  # m, feature fleet against its single run over its frames
@@ -265,6 +292,11 @@ ODO_VIEWS = 8           # phase 10's hand-eye calibration
 ADV_CHUNK = 25          # bench.py _image_path_recovering's serving chunk
 ADV_SEED = 11           # bench.py --adv-seeds' default
 ADV_ARMS = ((0, 6.0), (2, 12.0))  # (nuisance level, seconds): 121 and 241 frames
+TAIL_SECONDS = 6.0      # phase 10 (c): 121 frames of the bench sequence
+TAIL_CHUNK = 25         # ADV_CHUNK
+TAIL_BLANK = 10         # frames closing the first chunk with the camera covered (blank) and
+TAIL_KNOCK = 150.0      # m/s^2 on the accelerometer's x axis (a knock, ~15 g): the chunk's
+                        # last frames gate on |v| > 10 m/s (recover_tail is 6)
 ADV_JAX = ("level 0: 0.0067 m over 230/241 poses at 12 s; level 2: 0.41-0.69 m over seeds "
            "11/23/37, 1 recovery each (artifacts/bench_adversarial_r5.json, TPU v5e)")
 PEAK_BYTES_S = 3.35e12
@@ -1488,9 +1520,20 @@ def phase_image_fleet(lk, cfg, sim, example, make_camera, serve):
         single_p.append(one[0].cpu().numpy())
         single_kf.append(one[3].cpu().numpy())
 
+    # What phase 11 runs again over ranks, taken before this fleet's run
+    # advances the sequences' generators: host copies, each generator as
+    # its state.
+    handoff = dict(
+        params=_tree_map(lambda t: t.cpu(), eng.params),
+        carries=[_tree_map(lambda t: t.cpu(), q["carry"]._replace(gen=q["carry"].gen.get_state()))
+                 for q in seqs],
+        inputs=[q["inputs"] for q in seqs], ts=[q["ts"] for q in seqs],
+        stream_ts=[q["stream_ts"] for q in seqs], stream_p=[q["stream_p"] for q in seqs],
+        draws=[d.cpu() for d in draws], out64=tuple(x.cpu() for x in out64),
+        cam_ts=data.cam_ts, gt_p=data.gt_p)
     step = batch.make_batched_image_step(eng.params, n_it, cfg.tracker, eng.camera, focal)
     carry = batch.batch_states([q["carry"] for q in seqs])
-    outs, walls, syncs = [], [], None
+    outs, walls = [], []
     lk.reset_launch_counts()
     for c in range(FLEET_CHUNKS):
         per_seq = [chunked.stack_image_inputs(q["inputs"][c * CHUNK:(c + 1) * CHUNK], dev)
@@ -1532,6 +1575,8 @@ def phase_image_fleet(lk, cfg, sim, example, make_camera, serve):
                syncs_per_fleet_frame=syncs / CHUNK, ates=ates, first_frames_diff_f64=diffs64,
                first_frames_diff_f32=diffs, first_frames_same_kf_f32=same_kf,
                ok_frames=int(ok.sum()), seconds=time.perf_counter() - t_phase)
+    handoff.update(p32=p, kf32=kf)
+    out["handoff"] = handoff
     print(f"[phase 7] image fleet B={FLEET_B}: {FLEET_CHUNKS} chunks of {CHUNK}, "
           f"{out['ok_frames']} of {FLEET_B * n_fleet} poses ok; fleet fps {fps:.3f} "
           f"({out['fps_per_seq']:.3f} per sequence), {out['ms_per_fleet_frame']:.2f} ms per "
@@ -1643,6 +1688,10 @@ def phase_feature_fleet(cfg, data, sim, serve):
         t_single += time.perf_counter() - t0
         single_out.append(out)
 
+    handoff = dict(params=_tree_map(lambda t: t.cpu(), engine.params),
+                   state=_tree_map(lambda t: t.cpu(), engine.state),
+                   inputs=[[_tree_map(lambda t: t.cpu(), x) for x in seq] for seq in seq_inputs],
+                   out64=tuple(x.cpu() for x in out64))
     step = batch.make_batched_chunked_step(engine.params, n_it)
     state = batch.batch_states([engine.state] * FEATURE_FLEET_B)
     outs, walls = [], []
@@ -1673,6 +1722,8 @@ def phase_feature_fleet(cfg, data, sim, serve):
                single_chunked_fps=single_fps, max_diff=max(diffs),
                first_frames_diff_f64=max(diffs64), first_frames_diff_f32=max(first),
                first_frames_same_kf_f32=same_kf, seconds=time.perf_counter() - t_phase)
+    handoff.update(p32=p, kf32=kf)
+    out["handoff"] = handoff
     print(f"[phase 7] feature fleet B={FEATURE_FLEET_B} from frame {fi0}: fleet fps "
           f"{fps:.3f} ({out['fps_per_seq']:.3f} per sequence; chunk walls "
           f"{[round(w, 3) for w in walls]} s); single-stream make_chunked_step "
@@ -2533,6 +2584,327 @@ def phase_adversarial(lk, cfg, arms=ADV_ARMS, device="cuda"):
     return out
 
 
+def phase_tail_replay(lk, cfg, sim, example, make_camera, device="cuda"):
+    """(c) A failed chunk tail replayed on the card: the bench sequence
+    through ChunkedImageServer (chunks of TAIL_CHUNK), the last TAIL_BLANK
+    frames of its first chunk blank with a TAIL_KNOCK accelerometer spike
+    (the tracker keeps nothing and the IMU alone drives the state past the
+    gate's 10 m/s), then the stretch on to the end: the server recovers,
+    replays the failed frames and initializes again."""
+    from mobile_slam_tpu_torch.engine.serving import ChunkedImageServer
+
+    cam = make_camera(cfg.camera, dtype=torch.float64, device="cpu")
+    data = sim.simulate(example.bench_sim_config(TAIL_SECONDS), cam,
+                        cfg.camera.r_ic_mat, cfg.camera.t_ic_vec)
+    server = ChunkedImageServer(cfg, device=device, chunk_size=TAIL_CHUNK)
+    eng = server.engine
+    real_process, real_input = eng.process_frame, server._frame_input
+    calls, inputs = [], {}
+
+    def process_frame(image, ts, imu_override=None):
+        calls.append((ts, imu_override))
+        return real_process(image, ts, imu_override=imu_override)
+
+    def frame_input(image, ts):
+        inputs[ts] = real_input(image, ts)
+        return inputs[ts]
+
+    eng.process_frame, server._frame_input = process_frame, frame_input
+    after, imu_i, blank, chunks_after = [], 0, None, 0
+    t0 = time.perf_counter()
+    for fi in range(len(data.frames)):
+        img = sim.render_frame(data, fi, cam, example.R_IC, cfg.camera.t_ic_vec)
+        knock = blank is not None and fi in blank
+        if knock:
+            img = np.zeros_like(img)
+        while imu_i < len(data.imu_ts) and data.imu_ts[imu_i] <= data.cam_ts[fi] + 1e-9:
+            server.push_imu(data.imu_ts[imu_i],
+                            data.imu_acc[imu_i] + (TAIL_KNOCK if knock else 0.0) * np.eye(3)[0],
+                            data.imu_gyr[imu_i])
+            imu_i += 1
+        recovered, n_chunks = server.n_recoveries > 0, server.n_chunks
+        out = server.process_frame(img, data.cam_ts[fi])
+        if recovered:
+            after += [r.p for r in out if r.ok]
+            chunks_after += server.n_chunks - n_chunks
+        if blank is None and server.mode == "chunked":
+            first = fi + 1      # the first chunk's frames: first .. first + TAIL_CHUNK - 1
+            blank = range(first + TAIL_CHUNK - TAIL_BLANK, first + TAIL_CHUNK)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check(blank is not None, "tail replay: the server never entered chunked mode")
+    _check(server.n_recoveries >= 1, f"tail replay: {server.n_recoveries} recoveries after "
+           f"{TAIL_BLANK} blank frames closing a chunk of {TAIL_CHUNK}")
+    replayed = [(ts, ov) for ts, ov in calls if ov is not None]
+    last = blank.stop - 1       # the first chunk's last frame
+    want_ts = [data.cam_ts[fi] for fi in range(last - len(replayed) + 1, last + 1)]
+    _check(len(replayed) >= server.recover_tail and [ts for ts, _ in replayed] == want_ts,
+           f"tail replay: replayed frames at {[ts for ts, _ in replayed]}, the chunk's last "
+           f"frame at {data.cam_ts[last]}")
+    for ts, (dt, acc, gyr) in replayed:
+        inp = inputs[ts]
+        cnt = int(inp.imu_cnt)
+        _check(np.array_equal(dt, inp.imu_dt[:cnt].numpy())
+               and np.array_equal(acc, inp.imu_acc[:cnt].numpy())
+               and np.array_equal(gyr, inp.imu_gyr[:cnt].numpy()),
+               f"tail replay: frame at {ts} replayed with another IMU slice")
+    after = np.asarray(after)
+    _check(len(after) > 0 and bool(np.isfinite(after).all()),
+           f"tail replay: {len(after)} poses after the recovery, finite "
+           f"{bool(np.isfinite(after).all()) if len(after) else None}")
+    _check(chunks_after >= 1, "tail replay: the server did not return to chunked mode")
+    out = dict(recoveries=server.n_recoveries, replay_ms=list(server.replay_ms),
+               replayed=len(replayed), poses_after=len(after), chunks_after=chunks_after,
+               frames=len(data.frames), wall_s=wall)
+    print(f"[phase 10] tail replay: {TAIL_BLANK} blank frames with a {TAIL_KNOCK} m/s^2 knock "
+          f"closing chunk 1 of {TAIL_CHUNK} (frames {blank.start}-{last}); {server.n_recoveries} "
+          f"recoveries, {len(replayed)} frames replayed through process_frame(imu_override=) "
+          f"with their own IMU slices, replay ms {[round(x, 1) for x in server.replay_ms]}; "
+          f"{len(after)} finite poses after the recovery, {chunks_after} chunks after it, "
+          f"{server.n_chunks} chunks in all over {len(data.frames)} frames in {wall:.1f} s",
+          flush=True)
+    return out
+
+
+def _on_device(tree, device):
+    return _tree_map(lambda t: t.to(device), tree)
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _rank_fleets(rank, world, path, device="cuda"):
+    """Phase 11 on one rank: phase 7's image fleet and feature fleet over the
+    ranks' mesh (parallel/batch.py's RankMesh), from phase 7's handoff."""
+    from mobile_slam_tpu_torch.engine import chunked, example
+    from mobile_slam_tpu_torch.engine.vio_engine import set_full_precision
+    from mobile_slam_tpu_torch.models.cameras.base import make_camera
+    from mobile_slam_tpu_torch.ops import lk
+    from mobile_slam_tpu_torch.parallel import batch
+    from mobile_slam_tpu_torch.probes.sync_sites import SyncSites
+
+    set_full_precision()
+    on_card = torch.device(device).type == "cuda"
+    mesh = batch.make_mesh(None if on_card else [device] * world)
+    dev = mesh.device
+    d = torch.load(path, weights_only=False)
+    cfg = example.bench_config()
+    n_it, focal = cfg.estimator.num_iterations, cfg.camera.focal_length
+    chunk, n_chunks = d["chunk"], d["chunks"]
+    out = dict(device=str(dev), device_index=dev.index,
+               card=torch.cuda.get_device_name(dev) if on_card else "cpu",
+               backend=torch.distributed.get_backend())
+    syncs = SyncSites if on_card else contextlib.nullcontext
+
+    # (a) the image fleet.
+    img = d["image"]
+    params = _on_device(img["params"], dev)
+    check = img["draws"][0].shape[0]
+
+    def carries():
+        cs = []
+        for c in img["carries"]:
+            g = torch.Generator(device=dev)
+            g.set_state(c.gen)
+            cs.append(_on_device(c._replace(gen=g), dev))
+        return cs
+
+    def fleet_inputs(lo, hi, dtype=None):
+        rows = [chunked.stack_image_inputs([x if dtype is None else _to64(x) for x in seq[lo:hi]],
+                                           dev) for seq in img["inputs"]]
+        return chunked.ImageFrameInput(*[torch.stack(x, dim=1) for x in zip(*rows)])
+
+    args64 = (_to64(params), n_it, cfg.tracker,
+              make_camera(cfg.camera, dtype=torch.float64, device=dev), focal)
+    _, o64 = batch.make_batched_image_step(*args64, mesh=mesh)(
+        batch.shard_batched(batch.batch_states([_to64(c) for c in carries()]), mesh),
+        fleet_inputs(0, check, torch.float64),
+        ransac_draws=torch.stack([x.to(dev) for x in img["draws"]], dim=1))
+    ref = img["out64"]
+    out["image_diff_f64"] = [float((o64[0][:, s].cpu() - ref[0][:, s]).norm(dim=-1).max())
+                             for s in range(len(img["carries"]))]
+    out["image_same_kf_f64"] = bool(torch.equal(o64[3].cpu(), ref[3]))
+
+    step = batch.make_batched_image_step(params, n_it, cfg.tracker,
+                                         make_camera(cfg.camera, dtype=torch.float32, device=dev),
+                                         focal, mesh=mesh)
+    # A throwaway float32 pass (fresh generators) loads the float32 kernels,
+    # so the timed chunk is no colder than phase 7's, whose process has run
+    # float32 steps of this model before its fleet.
+    step(batch.shard_batched(batch.batch_states(carries()), mesh), fleet_inputs(0, check))
+    carry = batch.shard_batched(batch.batch_states(carries()), mesh)
+    outs, walls = [], []
+    lk.reset_launch_counts()
+    for c in range(n_chunks):
+        inputs = fleet_inputs(c * chunk, (c + 1) * chunk)
+        _sync(dev)
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        with syncs() as sc:         # the step alone, as phase 7 counts it
+            carry, o = step(carry, inputs)
+        o = tuple(x.cpu().numpy() for x in o)
+        walls.append(time.perf_counter() - t0)
+        n_syncs = sum(sc.sites.values()) if on_card else 0
+        outs.append(o)
+    out["image_counts"] = dict(lk.launch_counts)
+    out["configured"] = sorted(lk._configured)      # cards K1's attribute was set on
+    out["image_walls"], out["image_syncs"] = walls, n_syncs
+    out["image_p"] = np.concatenate([o[0] for o in outs])
+    out["image_ok"] = np.concatenate([o[2] for o in outs])
+    out["image_kf"] = np.concatenate([o[3] for o in outs])
+    out["image_local_b"] = int(carry.est_state.window.p.shape[0])
+
+    # (b) the feature fleet.
+    fea = d["feature"]
+    fparams, fstate = _on_device(fea["params"], dev), _on_device(fea["state"], dev)
+
+    def feature_inputs(lo, hi, dtype=None):
+        rows = [chunked.stack_frame_inputs([_on_device(x if dtype is None else _to64(x), dev)
+                                            for x in seq[lo:hi]]) for seq in fea["inputs"]]
+        return type(rows[0])(*[torch.stack(x, dim=1) for x in zip(*rows)])
+
+    n_seq = len(fea["inputs"])
+    _, f64 = batch.make_batched_chunked_step(_to64(fparams), n_it, mesh=mesh)(
+        batch.shard_batched(batch.batch_states([_to64(fstate)] * n_seq), mesh),
+        feature_inputs(0, check, torch.float64))
+    ref = fea["out64"]
+    out["feature_diff_f64"] = max(float((f64[0][:, s].cpu() - ref[0][:, s]).norm(dim=-1).max())
+                                  for s in range(n_seq))
+    out["feature_same_kf_f64"] = bool(torch.equal(f64[3].cpu(), ref[3]))
+    fstep = batch.make_batched_chunked_step(fparams, n_it, mesh=mesh)
+    state = batch.shard_batched(batch.batch_states([fstate] * n_seq), mesh)
+    fstep(state, feature_inputs(0, check))      # float32 warm-up, as for the image fleet
+    outs, walls = [], []
+    for c in range(n_chunks):
+        inputs = feature_inputs(c * chunk, (c + 1) * chunk)
+        _sync(dev)
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        with syncs() as sc:
+            state, o = fstep(state, inputs)
+        o = tuple(x.cpu().numpy() for x in o)
+        walls.append(time.perf_counter() - t0)
+        out["feature_syncs"] = sum(sc.sites.values()) if on_card else 0
+        outs.append(o)
+    out["feature_walls"] = walls
+    out["feature_p"] = np.concatenate([o[0] for o in outs])
+    out["feature_kf"] = np.concatenate([o[3] for o in outs])
+    out["jax_imported"] = "jax" in sys.modules
+    out["reference_imported"] = any(m == "mobile_slam_tpu" or m.startswith("mobile_slam_tpu.")
+                                    for m in sys.modules)
+    return out
+
+
+def phase_rank_fleet(lk, fleet, ffleet, device="cuda"):
+    """11. Phase 7's fleets over W = max(2, cards) ranks (one process each,
+    parallel/launch.py), then dryrun_multichip(W)."""
+    from mobile_slam_tpu_torch.eval.evaluator import compute_ate
+    from mobile_slam_tpu_torch.parallel import dryrun, launch
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    # At least two ranks, at most one per card, and a count that splits both fleets.
+    cards_here = torch.cuda.device_count() if on_card else 0
+    world = max(w for w in range(2, max(2, cards_here) + 1)
+                if FLEET_B % w == 0 and FEATURE_FLEET_B % w == 0)
+    path = os.path.join(REPO, "_chip_scratch", "phase11", "fleets.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    img, fea = fleet["handoff"], ffleet["handoff"]
+    torch.save(dict(image=img, feature=fea, chunk=CHUNK, chunks=FLEET_CHUNKS), path)
+    ranks = launch.run_ranks(_rank_fleets, world, path, device, device=device)
+    cards = sorted({r["device_index"] for r in ranks})
+    n_fleet = FLEET_CHUNKS * CHUNK
+    for r, got in enumerate(ranks):
+        _check(not got["jax_imported"] and not got["reference_imported"],
+               f"rank {r} imported jax or the JAX package")
+        _check(max(got["image_diff_f64"]) < FLEET_RANK_TOL and got["image_same_kf_f64"],
+               f"rank {r}: image fleet (float64) first {FLEET_CHECK_FRAMES} frames "
+               f"{got['image_diff_f64']} m from phase 7's world-1 fleet, same keyframe flags "
+               f"{got['image_same_kf_f64']}")
+        _check(got["feature_diff_f64"] < FLEET_RANK_TOL and got["feature_same_kf_f64"],
+               f"rank {r}: feature fleet (float64) {got['feature_diff_f64']} m from phase 7's, "
+               f"same keyframe flags {got['feature_same_kf_f64']}")
+        _check(got["configured"] == ([got["device_index"]] if on_card else []),
+               f"rank {r} on card {got['device_index']} set K1's shared-memory attribute "
+               f"on cards {got['configured']}")
+        _check(got["image_local_b"] == FLEET_B // world, f"rank {r} holds "
+               f"{got['image_local_b']} sequences of the image fleet's carry")
+        for k, per in LK_PER_FRAME.items():
+            _check(got["image_counts"][k] == (per * n_fleet if on_card else 0),
+                   f"rank {r}: {k} launched {got['image_counts'][k]} times over {n_fleet} "
+                   "fleet frames")
+        _check(np.array_equal(got["image_p"], ranks[0]["image_p"])
+               and np.array_equal(got["feature_p"], ranks[0]["feature_p"]),
+               f"rank {r} gathered other poses than rank 0")
+    got = ranks[0]
+    p, ok = got["image_p"], got["image_ok"]
+    _check(bool(np.isfinite(p).all()) and bool(np.isfinite(got["feature_p"]).all()),
+           "rank fleet: non-finite poses")
+    ates = []
+    for s in range(FLEET_B):
+        est_ts = img["stream_ts"][s] + [t for t, o in zip(img["ts"][s], ok[:, s]) if o]
+        est_p = img["stream_p"][s] + [x for x, o in zip(p[:, s], ok[:, s]) if o]
+        ate = compute_ate(np.asarray(est_ts), np.asarray(est_p), img["cam_ts"], img["gt_p"])
+        ates.append(float(ate.rmse))
+        _check(ate.rmse < ATE_TOL, f"rank fleet sequence {s}: ATE {ate.rmse} m")
+    d32 = float(np.linalg.norm(p - img["p32"], axis=-1).max())
+    d32_first = float(np.linalg.norm(p[:FLEET_CHECK_FRAMES] - img["p32"][:FLEET_CHECK_FRAMES],
+                                     axis=-1).max())
+    fd32 = float(np.linalg.norm(got["feature_p"] - fea["p32"], axis=-1).max())
+    wall = max(r["image_walls"][0] for r in ranks)
+    fwall = max(r["feature_walls"][0] for r in ranks)
+    out = dict(world=world, cards=len(cards), backend=got["backend"],
+               fps=FLEET_B * CHUNK / wall, fps_per_seq=CHUNK / wall,
+               ms_per_fleet_frame=1e3 * wall / CHUNK,
+               syncs_per_fleet_frame=[r["image_syncs"] / CHUNK for r in ranks],
+               feature_fps=FEATURE_FLEET_B * CHUNK / fwall,
+               feature_syncs_per_frame=[r["feature_syncs"] / CHUNK for r in ranks],
+               ates=ates, image_diff_f64=max(max(r["image_diff_f64"]) for r in ranks),
+               feature_diff_f64=max(r["feature_diff_f64"] for r in ranks),
+               image_diff_f32=d32, image_diff_f32_first=d32_first, feature_diff_f32=fd32,
+               counts=[r["image_counts"] for r in ranks])
+    out["fps_ratio"] = out["fps"] / fleet["fps"]
+    out["feature_fps_ratio"] = out["feature_fps"] / ffleet["fps"]
+    print(f"[phase 11] fleets over {world} ranks (the most, at least two and at most one per "
+          f"card of {cards_here}, that split B = {FLEET_B} and {FEATURE_FLEET_B}) on "
+          f"{len(cards)} distinct card(s) {cards} "
+          f"({got['card']}), gather over {got['backend']}: image fleet B={FLEET_B} "
+          f"({FLEET_B // world} per rank), {FLEET_CHUNKS} chunk(s) of {CHUNK}: fleet fps "
+          f"{out['fps']:.3f} ({out['fps_per_seq']:.3f} per sequence), "
+          f"{out['ms_per_fleet_frame']:.2f} ms per fleet frame, host syncs per fleet frame "
+          f"per rank {[round(x, 2) for x in out['syncs_per_fleet_frame']]} (the gather's: "
+          f"{got['image_syncs'] - round(fleet['syncs_per_fleet_frame'] * CHUNK)} per chunk of "
+          f"{CHUNK}); phase 7 (world 1, "
+          f"this call) fleet fps {fleet['fps']:.3f} ({fleet['fps_per_seq']:.3f} per sequence, "
+          f"{fleet['ms_per_fleet_frame']:.2f} ms per fleet frame, "
+          f"{fleet['syncs_per_fleet_frame']:.2f} host syncs per fleet frame): ratio "
+          f"{out['fps_ratio']:.3f}; ATE per sequence {[round(a, 4) for a in ates]} m "
+          f"(< {ATE_TOL}); first {FLEET_CHECK_FRAMES} frames against phase 7's world-1 fleet: "
+          f"float64 {out['image_diff_f64']:.3g} m (same keyframe flags), float32 "
+          f"{d32_first:.3g} m (all {n_fleet} frames {d32:.3g} m); launches per rank "
+          f"{out['counts']} over {n_fleet} fleet frames (1 / 2 / 2 per fleet frame on each "
+          f"rank)", flush=True)
+    print(f"[phase 11] feature fleet B={FEATURE_FLEET_B} over {world} ranks: fleet fps "
+          f"{out['feature_fps']:.3f} against phase 7's {ffleet['fps']:.3f} (ratio "
+          f"{out['feature_fps_ratio']:.3f}); host syncs per fleet frame per rank "
+          f"{[round(x, 2) for x in out['feature_syncs_per_frame']]}; first "
+          f"{FLEET_CHECK_FRAMES} frames float64 {out['feature_diff_f64']:.3g} m from phase "
+          f"7's (same keyframe flags); float32 over {n_fleet} frames {fd32:.3g} m", flush=True)
+    if on_card and len(cards) < 2:
+        print(f"[phase 11] dryrun_multichip({world}): check 2 (the landmark-sharded solve "
+              f"over NCCL) needs a card per rank and this machine has {len(cards)}; phase 9 "
+              "holds it at world 1", flush=True)
+    out["dryrun"] = dryrun.dryrun_multichip(world, device=device)
+    _check(not out["dryrun"]["jax_imported"] and not out["dryrun"]["reference_imported"],
+           "a rank of dryrun_multichip imported jax or the JAX package")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[phase 11] took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     smi_line = phase_device()
     from mobile_slam_tpu_torch.engine import example
@@ -2593,14 +2965,17 @@ def main() -> int:
     t10 = time.perf_counter()
     calib = phase_calibration()
     adver = phase_adversarial(lk, cfg)
+    tail = phase_tail_replay(lk, cfg, sim, example, make_camera)
     print(f"[phase 10] took {time.perf_counter() - t10:.1f} s", flush=True)
+    ranked = phase_rank_fleet(lk, fleet, ffleet)
     for k in LK_PER_FRAME:
         kernels[k].update(launches=cli_run["counts"][k], launches_serving=serve["counts"][k],
                           launches_streaming=stream["counts"][k],
                           launches_fleet=fleet["counts"][k],
                           launches_gateway=gate["counts"][k],
                           launches_mei=cams["counts"][k],
-                          launches_adversarial=adver["counts"][k], **fleet_k[k],
+                          launches_adversarial=adver["counts"][k],
+                          launches_rank_fleet=[c[k] for c in ranked["counts"]], **fleet_k[k],
                           **{f"mobile_{n}": v for n, v in mobile_k[k].items()})
     print(f"[summary] streaming {stream['ms_per_frame']:.2f} ms per tracking frame, "
           f"{stream['syncs_per_frame']:.1f} host syncs per frame; chunked "
@@ -2624,7 +2999,14 @@ def main() -> int:
           f"Mei ATE {cams['ate']:.4f} m; tp_damped_step dx {tp['dx_rel']:.1e}; calibration rms "
           f"{ {k: round(v['rms'], 4) for k, v in calib.items() if isinstance(v, dict) and 'rms' in v} } px; "
           f"adversarial (level: ATE m, poses, frames, recoveries) "
-          f"{ {a['level']: (round(a['ate'], 4), a['poses'], a['frames'], a['recoveries']) for a in adver['arms']} }",
+          f"{ {a['level']: (round(a['ate'], 4), a['poses'], a['frames'], a['recoveries']) for a in adver['arms']} }"
+          f"; "
+          f"tail replay {tail['recoveries']} recoveries, replay ms "
+          f"{[round(x, 1) for x in tail['replay_ms']]}; fleet over {ranked['world']} ranks "
+          f"({ranked['cards']} card(s)) {ranked['fps']:.3f} fps against {fleet['fps']:.3f} at "
+          f"world 1 (ratio {ranked['fps_ratio']:.3f}), feature fleet ratio "
+          f"{ranked['feature_fps_ratio']:.3f}, dryrun speedup "
+          f"{ranked['dryrun']['speedup']:.2f}x",
           flush=True)
     _check("jax" not in sys.modules, "jax was imported")
     _check(not any(m == "mobile_slam_tpu" or m.startswith("mobile_slam_tpu.")

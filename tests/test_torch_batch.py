@@ -19,7 +19,8 @@ the CPU at tiny sizes.
    ``make_chunked_image_step`` within 1e-10.
 4. ``torch.func.vmap`` of each LK operation against B single calls:
    bit-equal (the CPU rule runs the plain version per sequence).
-5. ``fleet_metrics``, ``batch_states`` and the one-device mesh.
+5. ``fleet_metrics``, ``batch_states`` and the one-device mesh (a mesh over
+   several devices needs a process group: tests/test_torch_fleet_mesh.py).
 6. The vmap rules' CUDA route with the kernels' entry points recorded:
    one launch per op for the whole fleet, with its batch strides.
 
@@ -334,8 +335,8 @@ def test_fleet_metrics_batch_states_and_mesh():
     assert mesh == torch.device("cpu")
     moved = batch.shard_batched(stacked, mesh)
     assert moved[0].device == mesh and moved[1][1] == stacked[1][1]
-    with pytest.raises(NotImplementedError):
-        batch.make_mesh(["cpu", "cpu"])
+    with pytest.raises(RuntimeError, match="initialized torch.distributed group of 2 ranks"):
+        batch.make_mesh(["cpu", "cpu"])         # several devices need one rank each
     if not torch.cuda.is_available():       # the default is the card
         with pytest.raises(RuntimeError, match="CUDA"):
             batch.make_mesh()

@@ -25,7 +25,10 @@ CPU, and its OpenCV-free board geometry against OpenCV.
   reverse mode (the card's), against ``jax.jacfwd`` of the reference's
   residual at 1e-10.
 
-Each reference computation runs once per file (module fixtures)."""
+Each reference computation runs once per file (module fixtures), with the
+reference's lifts and projections compiled once per file: called eagerly,
+each lift's ``fori_loop`` compiles again on every call (its body is a new
+closure each time) and each projection dispatches operation by operation."""
 
 import numpy as np
 import pytest
@@ -50,6 +53,18 @@ PARAM_RTOL = 1e-7
 RMS_RTOL = 1e-9
 RMS_ATOL = 1e-11   # px, where a fit reaches the noise-free data
 JAC_TOL = 1e-10
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_cameras_jitted():
+    """The reference's camera functions as ``jax.jit`` of themselves for the
+    length of this file: the same programs, compiled once per shape."""
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (jpin, jeq, jmei):
+            mp.setattr(mod, "lift", jax.jit(mod.lift))
+        for mt, fn in list(jcal._PROJECT.items()):
+            mp.setitem(jcal._PROJECT, mt, jax.jit(fn))
+        yield
 
 
 # ---------------------------------------------------------------------------

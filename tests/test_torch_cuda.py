@@ -5,7 +5,7 @@ Runs chip_smoke.py in a subprocess: it builds the CUDA kernels, holds
 each against its plain PyTorch version at main-path shapes and drives the
 port's engine and chunked server over the bench sequence. The subprocess
 exits with 42 when no CUDA device is present, and the test then skips; the
-probe-kernel, fleet-kernel, calibration and adversarial-frame tests decide
+probe-kernel, fleet-kernel, calibration, adversarial-frame and dry-run tests decide
 inside themselves and skip without a card too.
 """
 
@@ -203,3 +203,22 @@ def test_adversarial_frame_feeds_the_server_on_the_card():
     assert server.frames_streamed == 1 and server.mode == "stream"
     assert lk.launch_counts == {"track_pyramidal": 1, "refine_template": 2,
                                 "extract_patches": 2}
+
+
+@pytest.mark.cuda
+def test_dryrun_over_two_ranks_on_the_card():
+    """parallel/dryrun.dryrun_multichip(2): two spawned ranks (on distinct
+    cards over NCCL where the machine has two, else sharing one over gloo)
+    run the reference's three dry-run checks; the sharded solve runs only
+    with a card per rank."""
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from mobile_slam_tpu_torch.parallel import dryrun
+
+    out = dryrun.dryrun_multichip(2)
+    assert out["poses"].shape == (2, 3) and bool(torch.isfinite(out["poses"]).all())
+    assert (out["tp_dx_norm"] is not None) == (torch.cuda.device_count() >= 2)
+    assert out["mesh_ms"] > 0 and out["single_ms"] > 0
+    assert not out["jax_imported"] and not out["reference_imported"]

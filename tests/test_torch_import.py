@@ -38,10 +38,12 @@ def test_port_imports_without_jax_or_triton():
 
 @pytest.mark.parametrize("entry", ["VIOEngine", "ChunkedImageServer", "call_overhead.run",
                                    "lk_pack_probe.run", "gateway.serve",
-                                   "gateway.ClientSession", "logging.device_trace"])
+                                   "gateway.ClientSession", "logging.device_trace",
+                                   "launch.run_ranks", "dryrun.dryrun_multichip"])
 def test_entry_points_default_to_the_card(entry):
     from mobile_slam_tpu_torch.engine.serving import ChunkedImageServer
     from mobile_slam_tpu_torch.engine.vio_engine import VIOEngine
+    from mobile_slam_tpu_torch.parallel import dryrun, launch
     from mobile_slam_tpu_torch.probes import call_overhead, lk_pack_probe
     from mobile_slam_tpu_torch.utils import logging
     from mobile_slam_tpu_torch.web import gateway
@@ -49,7 +51,9 @@ def test_entry_points_default_to_the_card(entry):
     fn = {"VIOEngine": VIOEngine, "ChunkedImageServer": ChunkedImageServer,
           "call_overhead.run": call_overhead.run, "lk_pack_probe.run": lk_pack_probe.run,
           "gateway.serve": gateway.serve, "gateway.ClientSession": gateway.ClientSession,
-          "logging.device_trace": logging.device_trace.__wrapped__}[entry]
+          "logging.device_trace": logging.device_trace.__wrapped__,
+          "launch.run_ranks": launch.run_ranks, "dryrun.dryrun_multichip": dryrun.dryrun_multichip
+          }[entry]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
@@ -61,6 +65,17 @@ def test_engine_on_the_card_raises_without_one():
         pytest.skip("a CUDA device is present; this checks the CPU-only case")
     with pytest.raises(RuntimeError, match="cuda"):
         VIOEngine(tiny_config())
+
+
+def test_ranks_on_the_card_raise_without_one():
+    from mobile_slam_tpu_torch.parallel import batch, launch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the CPU-only case")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.run_ranks(print, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batch.make_mesh()
 
 
 def test_kernel_module_imports_without_nvcc_and_build_raises_without_gpu():

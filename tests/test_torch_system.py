@@ -37,6 +37,7 @@ the reference in tests/test_torch_tracker.py and tests/test_torch_slice.py.
 
 import json
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -123,7 +124,6 @@ def runs(tmp_path_factory):
         return step(*a, **kw)
 
     engine._tracker_step = keyed_step
-    out["jax"] = system.process_sequence()
 
     tcfg = tconfig.load_config(str(cfg_path))
     frontend = ReferenceFrontend(step)
@@ -137,11 +137,29 @@ def runs(tmp_path_factory):
             frontend.continue_from(system.engine._gen, keys[CKPT - 1])
         return system.process_sequence()
 
+    def port_runs():
+        try:
+            out["ckpt"] = run("ckpt", end_frame=CKPT, checkpoint_path=snapshot)
+            out["pipelined"] = run("pipelined", pipelined=True)
+        except BaseException as e:     # re-raised in the test's thread below
+            failed.append(e)
+
+    failed = []
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(trk, "detect_and_track", frontend)
-        out["ckpt"] = run("ckpt", end_frame=CKPT, checkpoint_path=snapshot)
+        # The port's synchronous and pipelined runs need only the reference's
+        # jitted tracker, so they run beside the reference's own run (which
+        # spends most of its time compiling, off the interpreter lock); the
+        # resumed run needs the reference's key chain, so it runs after.
+        port = threading.Thread(target=port_runs)
+        port.start()
+        try:
+            out["jax"] = system.process_sequence()
+        finally:
+            port.join()
+        if failed:
+            raise failed[0]
         out["resume"] = run("resume", resume_path=snapshot)
-        out["pipelined"] = run("pipelined", pipelined=True)
     return out
 
 

@@ -9,24 +9,23 @@ rank 0 alone, shows) and mu 1e-4.
 
 1. World 1 against the reference's ``tp_damped_step`` on a one-device CPU
    mesh: dx, dlam and cost rtol 1e-9.
-2. World 2 (two spawned processes, a ``file://`` rendezvous) against the
+2. World 2 (two processes spawned by parallel/launch.py over gloo; the
+   ranks run tests/_torch_ranks.py, which imports no JAX) against the
    port's unsharded ``lm._solve_damped`` on the same equations: dx and each
    rank's dlam within 1e-9 relative, the cost rtol 1e-12, dx the same on
    both ranks.
 """
 
-import os
-
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 import jax
 import jax.numpy as jnp
 
 from tests._torch_parity import F64, example_state, reference_compile_cache, tonp  # noqa: F401
+from tests._torch_ranks import tp_local_step, tp_step
 
 from mobile_slam_tpu.engine import estimator as jest
 from mobile_slam_tpu.engine.example import tiny_config
@@ -40,7 +39,7 @@ from mobile_slam_tpu_torch import convert
 from mobile_slam_tpu_torch.engine import estimator as est
 from mobile_slam_tpu_torch.factors.imu_factor import sqrt_info_from_cov
 from mobile_slam_tpu_torch.models.state import FeatureTable, eligible_mask
-from mobile_slam_tpu_torch.parallel import tp_solver
+from mobile_slam_tpu_torch.parallel import launch, tp_solver
 from mobile_slam_tpu_torch.solver import assembly, lm
 
 MU = 1e-4
@@ -90,17 +89,6 @@ def problem():
     return ref, port
 
 
-def _local_step(port, rank, world):
-    """This rank's inputs (its landmark slice) through tp_damped_step."""
-    x = port["x"]._replace(lam=tp_solver.shard_landmarks(port["x"].lam, rank, world))
-    return tp_solver.tp_damped_step(
-        x, tp_solver.shard_landmarks(port["table"], rank, world), port["pre"], port["sqrt"],
-        port["imu_valid"], port["prior"], port["prior_H0"], port["ex_t"], port["ex_q"],
-        port["sp"], tp_solver.shard_landmarks(port["proj_valid"], rank, world),
-        tp_solver.shard_landmarks(port["lam_mask"], rank, world),
-        torch.tensor(MU, dtype=F64))
-
-
 def _unsharded(port):
     eqs = assembly.build_normal_eqs(
         port["x"], port["table"], port["pre"], port["sqrt"], port["imu_valid"],
@@ -120,7 +108,7 @@ def test_world_one_matches_reference(problem, tmp_path):
     dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rdv'}",
                             world_size=1, rank=0)
     try:
-        dx, dlam, cost = _local_step(port, 0, 1)
+        dx, dlam, cost = tp_local_step(port, 0, 1, MU)
     finally:
         dist.destroy_process_group()
     for got, want in ((dx, jdx), (dlam, jdlam), (cost, jcost)):
@@ -129,23 +117,11 @@ def test_world_one_matches_reference(problem, tmp_path):
                                    atol=1e-9 * np.abs(want).max())
 
 
-def _rank_main(rank, world, rdv, inputs, out_dir):
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{rdv}", world_size=world,
-                            rank=rank)
-    try:
-        port = torch.load(inputs, weights_only=False)
-        torch.save(_local_step(port, rank, world), os.path.join(out_dir, f"rank{rank}.pt"))
-    finally:
-        dist.destroy_process_group()
-
-
 def test_world_two_matches_unsharded_solve(problem, tmp_path):
     _, port = problem
     inputs = str(tmp_path / "inputs.pt")
     torch.save(port, inputs)
-    mp.spawn(_rank_main, args=(2, str(tmp_path / "rdv"), inputs, str(tmp_path)), nprocs=2)
-    outs = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    outs = launch.run_ranks(tp_step, 2, inputs, MU, device="cpu")
     dx, dlam, cost = _unsharded(port)
     assert torch.equal(outs[0][0], outs[1][0])          # dx replicated
     np.testing.assert_allclose(outs[0][0].numpy(), dx.numpy(), rtol=0,
