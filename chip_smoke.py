@@ -150,7 +150,7 @@ Phases, each printed as it runs:
    finite); prints poses, ATE, fps, render seconds, recoveries and the
    host-clock ms of each failed-tail replay; K1/K2/K3 at 1/2/2 launches per
    chunk-loop and streamed frame, replays included. (c) a failed chunk tail
-   replayed: 6 s of the bench sequence through ChunkedImageServer in
+   replayed: 4 s of the bench sequence through ChunkedImageServer in
    chunks of 25, the first chunk's last 10 frames blank with a 150 m/s^2
    accelerometer knock (the camera covered, the phone knocked): at least
    one recovery, the failed frames replayed through
@@ -172,6 +172,21 @@ Phases, each printed as it runs:
    (float64 against phase 7's); (c) parallel/dryrun.dryrun_multichip(W)
    (its landmark-sharded solve only with a card per rank). No rank imports
    jax or the JAX package.
+12. the flagship step unit and the user tools: (a) entry.entry(), the
+   tiny configuration's feature-level step (bookkeeping_step, then
+   solve_and_slide on the keyframe flag as a tensor): 3 steps built at
+   float64 on the card held against the same on the CPU (computed in a
+   process of its own, started with phase 0) within 1e-9 m with the same
+   keyframe flags and window timestamps, then the float32 unit on
+   the card: 10 steps timed (host clock, each ended by a synchronize) and
+   the host syncs of 3 more counted as phase 3 counts them; (b)
+   tools.compare_trajectories on phase 6's pipelined run directory and
+   ground truth, its ATE printed beside phase 6's own (< 0.05 m); (c)
+   tools.export_replay_dataset --duration=2 --size=256, its 41 frames read
+   back through io/png and checked against its manifest; (d) 5 of those
+   frames as RGB and RGBA PNG in a EuRoC layout, read through EurocDataset
+   (io/png and the native loader, read_image and image_stream), equal to
+   the native loader's gray frames and to its integer luma.
 
 Prints a JSON line of per-kernel results ("launches": phase 6's pipelined
 run; phases 3, 4, 7, 8, 9's Mei run, 10's adversarial arms and 11's ranks
@@ -292,13 +307,21 @@ ODO_VIEWS = 8           # phase 10's hand-eye calibration
 ADV_CHUNK = 25          # bench.py _image_path_recovering's serving chunk
 ADV_SEED = 11           # bench.py --adv-seeds' default
 ADV_ARMS = ((0, 6.0), (2, 12.0))  # (nuisance level, seconds): 121 and 241 frames
-TAIL_SECONDS = 6.0      # phase 10 (c): 121 frames of the bench sequence
+TAIL_SECONDS = 4.0      # phase 10 (c): 81 frames of the bench sequence, the failed first chunk
+                        # and a chunk after it (121 frames until phase 12 came: the smoke's time)
 TAIL_CHUNK = 25         # ADV_CHUNK
 TAIL_BLANK = 10         # frames closing the first chunk with the camera covered (blank) and
 TAIL_KNOCK = 150.0      # m/s^2 on the accelerometer's x axis (a knock, ~15 g): the chunk's
                         # last frames gate on |v| > 10 m/s (recover_tail is 6)
 ADV_JAX = ("level 0: 0.0067 m over 230/241 poses at 12 s; level 2: 0.41-0.69 m over seeds "
            "11/23/37, 1 recovery each (artifacts/bench_adversarial_r5.json, TPU v5e)")
+ENTRY_CHECK_STEPS = 3   # phase 12: entry steps held card (float64) against CPU (float64)
+ENTRY_TOL = 1e-9        # m
+ENTRY_TIMED_STEPS = 10  # float32 entry steps timed on the card
+ENTRY_SYNC_STEPS = 3    # float32 entry steps whose host syncs are counted
+ENTRY_DT = 0.05         # s between the entry steps' inputs (the example window's spacing)
+REPLAY_ARGS = ("--duration=2", "--size=256")   # phase 12's replay export
+COLOR_FRAMES = 5        # phase 12's colour PNG sequence
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 
@@ -1201,7 +1224,7 @@ def phase_cli(lk, data, sync_streaming):
                syncs_per_sync_frame=float(np.mean(sync.syncs)), map_points=len(map_pts),
                resume_max_dp=d_resume, resume_poses=len(after), pipelined_max_dp=d_pipe,
                pipelined_common=len(common), device_step_ms=step_ms,
-               seconds=time.perf_counter() - t_phase)
+               run_dir=run_dir, seq=seq, seconds=time.perf_counter() - t_phase)
     print(f"[phase 6] synchronous: {len(sync.poses)} poses, host syncs per tracking frame "
           f"{sync.syncs}; checkpoint at {t_ck:.3f} s, resumed {len(after)} poses, largest "
           f"position difference to the uninterrupted run {d_resume:.3e} m; pipelined against "
@@ -2905,8 +2928,186 @@ def phase_rank_fleet(lk, fleet, ffleet, device="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the flagship step unit, the user tools, a colour PNG sequence
+# ---------------------------------------------------------------------------
+
+def _color_png(rgb: np.ndarray) -> bytes:
+    """An 8-bit RGB (colour type 2) or RGBA (6) PNG of ``rgb`` ((H, W, 3 or
+    4) uint8), every row unfiltered."""
+    import struct
+    import zlib
+
+    from mobile_slam_tpu_torch.io import png
+
+    h, w, ch = rgb.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * ch)], axis=1)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (png.PNG_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, {3: 2, 4: 6}[ch], 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def _entry_steps(device, dtype=torch.float64, n=ENTRY_CHECK_STEPS):
+    """``n`` steps of ``entry(device, dtype)``'s unit, each input ``ENTRY_DT``
+    after the last: [(p, q, window ts, keyframe flag)] on the host. A
+    keyframe step slides the window (its first timestamp changes); a
+    general step replaces the newest frame."""
+    from mobile_slam_tpu_torch import entry
+
+    step, (st, inp) = entry.entry(device=device, dtype=dtype)
+    out = []
+    for _ in range(n):
+        first = float(st.window.ts[0])
+        st, p, q = step(st, inp)
+        ts = st.window.ts.cpu().numpy()
+        out.append((p.cpu().numpy(), q.cpu().numpy(), ts, bool(ts[0] != first)))
+        inp = inp._replace(ts=inp.ts + ENTRY_DT)
+    return out
+
+
+def start_entry_reference():
+    """Phase 12's CPU reference (``_entry_steps("cpu")``), computed in a
+    process of its own from the start of the run, beside the card's phases:
+    (future, executor); the executor is shut down once the result is read."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    return pool.submit(_entry_steps, "cpu"), pool
+
+
+def phase_entry_tools(cli_run, cpu_steps, device="cuda"):
+    """Phase 12 (module docstring); ``cpu_steps`` the CPU reference's
+    ``_entry_steps``."""
+    import io as _io
+
+    from mobile_slam_tpu_torch import entry
+    from mobile_slam_tpu_torch.io import dataset, native_loader, png
+    from mobile_slam_tpu_torch.probes.sync_sites import SyncSites
+    from mobile_slam_tpu_torch.tools import compare_trajectories, export_replay_dataset
+
+    t_phase = time.perf_counter()
+    # (a) The step unit: card against CPU at float64, then float32 timed.
+    cpu, card = cpu_steps, _entry_steps(device)
+    d_entry = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(card, cpu))
+    d_q = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(card, cpu))
+    flags = [c[3] for c in cpu]
+    _check([c[3] for c in card] == flags and all(np.array_equal(a[2], b[2])
+                                                 for a, b in zip(card, cpu)),
+           f"entry: keyframe flags {[c[3] for c in card]} on the card, {flags} on the CPU")
+    _check(d_entry < ENTRY_TOL, f"entry: card against CPU {d_entry} m over "
+           f"{ENTRY_CHECK_STEPS} float64 steps (bar {ENTRY_TOL})")
+    step, (st, inp) = entry.entry(device=device)
+    _check(st.window.p.device.type == torch.device(device).type
+           and st.window.p.dtype == torch.float32,
+           f"entry() built on {st.window.p.device} in {st.window.p.dtype}")
+    st, p, q = step(st, inp)            # first call: loads the float32 kernels
+    ms, syncs = [], []
+    for i in range(ENTRY_TIMED_STEPS + ENTRY_SYNC_STEPS):
+        inp = inp._replace(ts=inp.ts + ENTRY_DT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i < ENTRY_TIMED_STEPS:
+            st, p, q = step(st, inp)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        else:
+            with SyncSites() as sc:
+                st, p, q = step(st, inp)
+                torch.cuda.synchronize()
+            syncs.append(sum(sc.sites.values()))
+    _check(bool(torch.isfinite(p).all() and torch.isfinite(q).all()),
+           f"entry: float32 step gave p {p}, q {q}")
+    print(f"[phase 12] entry(): {ENTRY_CHECK_STEPS} float64 steps, card against CPU "
+          f"{d_entry:.3e} m (bar {ENTRY_TOL}), q {d_q:.3e}, keyframe flags {flags}; "
+          f"float32 step median {np.median(ms):.2f} ms (p90 {np.percentile(ms, 90):.2f}) over "
+          f"{ENTRY_TIMED_STEPS} steps, host syncs per step {syncs}, p {p.cpu().numpy()}",
+          flush=True)
+
+    # (b) compare_trajectories on phase 6's pipelined run.
+    gt = os.path.join(cli_run["seq"], "mav0", "mocap0", "data.csv")
+    t0 = time.perf_counter()
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = compare_trajectories.main([cli_run["run_dir"], "--gt", gt, "--no-display"])
+    lines = buf.getvalue().splitlines()
+    _check(rc == 0 and len(lines) == 3 and lines[0].startswith("ATE: rmse"),
+           f"compare_trajectories returned {rc}: {lines}")
+    tool_ate = float(lines[0].split()[2])
+    _check(np.isfinite(tool_ate) and tool_ate < ATE_TOL, f"compare_trajectories ATE {tool_ate} m")
+    print(f"[phase 12] compare_trajectories on phase 6's pipelined run in "
+          f"{time.perf_counter() - t0:.2f} s: ATE {tool_ate:.4f} m (phase 6's evaluation "
+          f"{cli_run['ate']:.4f} m); " + " | ".join(lines), flush=True)
+
+    # (c) export_replay_dataset, its frames read back through io/png.
+    out_dir = os.path.join(REPO, "_chip_scratch", "phase12_replay")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(_io.StringIO()):
+        rc = export_replay_dataset.main([out_dir, *REPLAY_ARGS])
+    t_export = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    size = int(REPLAY_ARGS[1].split("=")[1])
+    frames = [png.imread_gray(os.path.join(out_dir, fr["file"])) for fr in manifest["frames"]]
+    with open(os.path.join(out_dir, "imu.csv")) as f:
+        n_imu = sum(1 for ln in f if not ln.startswith("#"))
+    _check(rc == 0 and len(frames) == 41 and all(fr.shape == (size, size) for fr in frames)
+           and sorted(os.listdir(os.path.join(out_dir, "frames")))
+           == [os.path.basename(fr["file"]) for fr in manifest["frames"]] and n_imu > 0,
+           f"export_replay_dataset: rc {rc}, {len(frames)} frames, {n_imu} IMU rows")
+    print(f"[phase 12] export_replay_dataset {' '.join(REPLAY_ARGS)} in {t_export:.2f} s: "
+          f"{len(frames)} PNG frames {size}x{size} read back through io/png (mean grey "
+          f"{np.mean([fr.mean() for fr in frames]):.1f}), {n_imu} IMU rows, manifest "
+          f"{sorted(manifest)}", flush=True)
+
+    # (d) A colour PNG sequence through EurocDataset, against the native loader.
+    root = os.path.join(REPO, "_chip_scratch", "phase12_color")
+    shutil.rmtree(root, ignore_errors=True)
+    cam_dir = os.path.join(root, "mav0", "cam0", "data")
+    os.makedirs(cam_dir)
+    os.makedirs(os.path.join(root, "mav0", "imu0"))
+    with open(os.path.join(root, "mav0", "imu0", "data.csv"), "w") as f:
+        f.write("1000,0,0,0,0,0,9.8\n")
+    rows, want = [], []
+    for i, fr in enumerate(frames[:COLOR_FRAMES]):
+        rgb = np.stack([fr, np.roll(fr, 7, axis=1), 255 - fr] + [fr] * (i % 2), -1)
+        with open(os.path.join(cam_dir, f"{1000 + i}.png"), "wb") as f:
+            f.write(_color_png(rgb))
+        rows.append(f"{1000 + i},{1000 + i}.png\n")
+        c = rgb[..., :3].astype(np.uint32)
+        want.append(((299 * c[..., 0] + 587 * c[..., 1] + 114 * c[..., 2]) // 1000).astype(np.uint8))
+    with open(os.path.join(root, "mav0", "cam0", "data.csv"), "w") as f:
+        f.write("".join(rows))
+    _check(native_loader.available(), "native/loader.cpp did not build")
+    pure = dataset.EurocDataset(root, use_native=False)
+    nat = dataset.EurocDataset(root)
+    streamed = [img.copy() for _, img in nat.image_stream(size, size, prefetch=2)]
+    for i in range(COLOR_FRAMES):
+        path = os.path.join(cam_dir, f"{1000 + i}.png")
+        native = native_loader.decode_image(path, size, size)
+        _check(all(np.array_equal(x, native) for x in
+                   (want[i], pure.read_image(i), nat.read_image(i), streamed[i])),
+               f"colour frame {i}: io/png, EurocDataset and the native loader disagree")
+    print(f"[phase 12] {COLOR_FRAMES} colour PNG frames (RGB and RGBA, {size}x{size}) read "
+          f"through EurocDataset (io/png and the native loader, read_image and image_stream) "
+          f"equal to the native loader's gray frames", flush=True)
+    out = dict(entry_err_m=d_entry, entry_flags=flags, entry_ms=float(np.median(ms)),
+               entry_syncs=float(np.mean(syncs)), tool_ate=tool_ate, export_s=t_export,
+               seconds=time.perf_counter() - t_phase)
+    print(f"[phase 12] took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     smi_line = phase_device()
+    entry_ref, entry_pool = start_entry_reference()
     from mobile_slam_tpu_torch.engine import example
     from mobile_slam_tpu_torch.engine.vio_engine import set_full_precision
     from mobile_slam_tpu_torch.eval import simulation as sim
@@ -2968,6 +3169,9 @@ def main() -> int:
     tail = phase_tail_replay(lk, cfg, sim, example, make_camera)
     print(f"[phase 10] took {time.perf_counter() - t10:.1f} s", flush=True)
     ranked = phase_rank_fleet(lk, fleet, ffleet)
+    with entry_pool:
+        cpu_steps = entry_ref.result()
+    unit = phase_entry_tools(cli_run, cpu_steps)
     for k in LK_PER_FRAME:
         kernels[k].update(launches=cli_run["counts"][k], launches_serving=serve["counts"][k],
                           launches_streaming=stream["counts"][k],
@@ -3006,7 +3210,9 @@ def main() -> int:
           f"({ranked['cards']} card(s)) {ranked['fps']:.3f} fps against {fleet['fps']:.3f} at "
           f"world 1 (ratio {ranked['fps_ratio']:.3f}), feature fleet ratio "
           f"{ranked['feature_fps_ratio']:.3f}, dryrun speedup "
-          f"{ranked['dryrun']['speedup']:.2f}x",
+          f"{ranked['dryrun']['speedup']:.2f}x; entry step {unit['entry_ms']:.2f} ms, "
+          f"{unit['entry_syncs']:.1f} host syncs; compare_trajectories ATE "
+          f"{unit['tool_ate']:.4f} m against phase 6's {cli_run['ate']:.4f} m",
           flush=True)
     _check("jax" not in sys.modules, "jax was imported")
     _check(not any(m == "mobile_slam_tpu" or m.startswith("mobile_slam_tpu.")

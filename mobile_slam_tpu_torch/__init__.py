@@ -6,7 +6,8 @@ preintegration, sliding-window LM with a square-root marginalization
 prior, the synchronous VIOEngine loop, the chunked frame step
 (engine/chunked.py) and the chunked image server with recovery
 (engine/serving.py), plus the two measurement probes of the frame loop
-(probes/, csrc/probe_kernels.cu).
+(probes/, csrc/probe_kernels.cu), the flagship step unit (entry.py) and
+the user tools (tools/).
 
 The package imports torch and numpy only: the framework-free modules of
 the JAX package (config, solver.layout, init.*, eval.evaluator) are copied

@@ -100,7 +100,7 @@ class StaticParams(NamedTuple):
     td_rw_info: torch.Tensor
 
 
-def make_params(cfg: VIOConfig, *, dtype=torch.float32, device) -> StaticParams:
+def make_params(cfg: VIOConfig, dtype=torch.float32, *, device) -> StaticParams:
     cam, est = cfg.camera, cfg.estimator
 
     def t(v):
@@ -127,14 +127,15 @@ def solver_params(p: StaticParams) -> SolverParams:
                         td_rw_info=p.td_rw_info)
 
 
-def init_state(cfg: VIOConfig, params: StaticParams) -> EstimatorState:
-    """clearState() parity."""
-    dtype, dev = params.gravity.dtype, params.gravity.device
+def init_state(cfg: VIOConfig, params: StaticParams,
+               dtype=torch.float32) -> EstimatorState:
+    """clearState() parity, in ``dtype`` on the device of ``params``."""
+    dev = params.gravity.device
     td0 = cfg.estimator.td_init
     return EstimatorState(
         window=init_window(cfg.estimator.max_imu_per_interval, dtype=dtype, device=dev),
         table=init_feature_table(cfg.estimator.max_features, dtype=dtype, device=dev),
-        prior=zero_prior(params.ex_t, params.ex_q, td=td0),
+        prior=zero_prior(params.ex_t, params.ex_q, dtype, td=td0),
         prev_acc=torch.zeros(3, dtype=dtype, device=dev),
         prev_gyr=torch.zeros(3, dtype=dtype, device=dev),
         frame_count=torch.zeros((), dtype=torch.int32, device=dev),

@@ -62,7 +62,7 @@ def make_example_state(cfg: VIOConfig, params, dtype=torch.float32,
     kw = dict(dtype=dtype, device="cuda" if device is None else device)
     i32 = dict(dtype=torch.int32, device=kw["device"])
     rng = np.random.default_rng(seed)
-    state = est.init_state(cfg, params)
+    state = est.init_state(cfg, params, dtype)
     g_norm = float(cfg.estimator.g_norm)
     F, m, k = cfg.estimator.max_features, cfg.estimator.max_imu_per_interval, cfg.tracker.max_points
 

@@ -52,9 +52,8 @@ class ChunkedImageServer:
     Runs on the card unless given ``device="cpu"``.
     """
 
-    def __init__(self, cfg, *, device="cuda", dtype=torch.float32,
-                 chunk_size: int = 50, recover_tail: int = 6,
-                 stable_frames: int = 3):
+    def __init__(self, cfg, dtype=torch.float32, chunk_size: int = 50,
+                 recover_tail: int = 6, stable_frames: int = 3, *, device="cuda"):
         self.cfg = cfg
         self.dtype = dtype
         self.chunk_size = int(chunk_size)

@@ -146,7 +146,7 @@ class VIOEngine:
     VEL_RUNAWAY_FACTOR = 2.0
     DEPTH_EMA_RATE = 0.005
 
-    def __init__(self, cfg: VIOConfig, *, device="cuda", dtype=torch.float32):
+    def __init__(self, cfg: VIOConfig, dtype=torch.float32, *, device="cuda"):
         set_full_precision()
         problems = validate_config(cfg)
         if problems:
@@ -182,7 +182,7 @@ class VIOEngine:
     def reset(self) -> None:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(0)
-        self.state = est.init_state(self.cfg, self.params)
+        self.state = est.init_state(self.cfg, self.params, self.dtype)
         self.tracker_state = trk.init_tracker_state(
             self.cfg.tracker, self.cfg.camera.height, self.cfg.camera.width,
             dtype=self.dtype, device=self.device)
@@ -212,7 +212,7 @@ class VIOEngine:
         old_td = float(self.state.td)
         if not math.isfinite(old_td):
             old_td = float(self.cfg.estimator.td_init)
-        self.state = est.init_state(self.cfg, self.params)
+        self.state = est.init_state(self.cfg, self.params, self.dtype)
         self.state = self.state._replace(td=self._t(old_td))
         self._pending = []  # in-flight pipelined frames used the old state
         self._depth_ema = None

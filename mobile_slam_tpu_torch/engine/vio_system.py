@@ -53,13 +53,13 @@ class VIOSystem:
     PROGRESS_EVERY = 100     # frames between progress lines on stderr
     IMU_WINDOW_S = 5.0
 
-    def __init__(self, cfg: VIOConfig, log_root: str = "logs",
-                 config_blob: str | None = None,
+    def __init__(self, cfg: VIOConfig, dataset_root: str | None = None,
+                 log_root: str = "logs", config_blob: str | None = None,
                  pipelined: bool = False, checkpoint_path: str | None = None,
                  checkpoint_every: int = 200,
                  resume_path: str | None = None, device="cuda"):
         self.cfg = cfg
-        self.dataset = EurocDataset(cfg.dataset_path)
+        self.dataset = EurocDataset(dataset_root or cfg.dataset_path)
         self.engine = VIOEngine(cfg, device=device)
         self.logger = ResultLogger(log_root, config_blob)
         self._imu_window: list[tuple] = []
@@ -101,7 +101,7 @@ class VIOSystem:
             json.dump(payload, f)
         os.replace(tmp, os.path.join(self.logger.dir, "live.json"))
 
-    def process_sequence(self) -> RunSummary:
+    def process_sequence(self, progress_every: int = PROGRESS_EVERY) -> RunSummary:
         cfg = self.cfg
         ds = self.dataset
         n = len(ds)
@@ -153,7 +153,7 @@ class VIOSystem:
                 # The CAMERA pose in TUM format (the evaluator transforms
                 # back to the body); pipelined, it belongs to res.ts.
                 log_pose(res.ts if res.ts is not None else ts, res.pose)
-            if frames % self.PROGRESS_EVERY == 0:
+            if progress_every and frames % progress_every == 0:
                 print(f"[vio] frame {idx}/{end} status={res.status.name} "
                       f"poses={poses}", file=sys.stderr)
             if frames % self.LIVE_EVERY == 0:

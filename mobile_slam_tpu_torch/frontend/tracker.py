@@ -49,8 +49,8 @@ class TrackerOutput(NamedTuple):
     num_tracked: torch.Tensor
 
 
-def init_tracker_state(cfg: TrackerConfig, height: int, width: int, *,
-                       dtype=torch.float32, device) -> TrackerState:
+def init_tracker_state(cfg: TrackerConfig, height: int, width: int,
+                       dtype=torch.float32, *, device) -> TrackerState:
     K = cfg.max_points
     kw = dict(dtype=dtype, device=device)
     i32 = dict(dtype=torch.int32, device=device)

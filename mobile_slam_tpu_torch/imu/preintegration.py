@@ -32,8 +32,8 @@ class Preintegration(NamedTuple):
     lin_bg: torch.Tensor  # (..., 3)
 
 
-def make_noise_cov(acc_n: float, gyr_n: float, acc_w: float, gyr_w: float, *,
-                   dtype=torch.float32, device) -> torch.Tensor:
+def make_noise_cov(acc_n: float, gyr_n: float, acc_w: float, gyr_w: float,
+                   dtype=torch.float32, *, device) -> torch.Tensor:
     """18x18 diagonal noise covariance."""
     d = ([acc_n * acc_n] * 3 + [gyr_n * gyr_n] * 3 + [acc_n * acc_n] * 3
          + [gyr_n * gyr_n] * 3 + [acc_w * acc_w] * 3 + [gyr_w * gyr_w] * 3)

@@ -135,8 +135,10 @@ class EurocDataset:
     Images are decoded on the host by the port's own PNG/PGM reader
     (io/png.py; no OpenCV). The native C++ loader (native/loader.cpp, built
     by io/native_loader.py) provides the same interface with its own CSV
-    parsing, 8-bit PNG/PGM decoding and a prefetch ring buffer; it is used
-    when it builds, and 16-bit PNG goes through io/png.py either way.
+    parsing, 8-bit PNG/PGM decoding (gray, RGB, gray + alpha and RGBA PNG,
+    colour converted by the same integer luma as io/png.py) and a prefetch
+    ring buffer; it is used when it builds, and 16-bit PNG goes through
+    io/png.py either way. Palette or interlaced PNG raises ``ValueError``.
     """
 
     def __init__(self, root: str, cam: str = "cam0", imu: str = "imu0",
@@ -180,8 +182,10 @@ class EurocDataset:
         return png.imread_gray(path)
 
     def _native_decodes(self) -> bool:
-        """Whether the native loader decodes this sequence (8-bit images):
-        the size and depth are probed once, from the first image's header."""
+        """Whether the native loader decodes this sequence (8-bit images of
+        any colour type io/png.py reads): the size and depth are probed
+        once, from the first image's header, which raises ``ValueError``
+        for a file neither reader decodes."""
         if self._size is None:
             hdr = png.read_header(os.path.join(self.image_dir, self.images.filenames[0]))
             self._size = (hdr.height, hdr.width)

@@ -25,10 +25,10 @@ _LIB_PATH = os.path.join(_BUILD_DIR, "libmslam_loader.so")
 _lib = None
 
 
-def build_library(source: str, lib_path: str, libs=()) -> bool:
+def build_library(source: str, lib_path: str, libs=(), force: bool = False) -> bool:
     """Compile ``source`` with g++ into the shared library ``lib_path``
-    unless it exists. Returns whether it does."""
-    if os.path.exists(lib_path):
+    unless it exists (``force``: in any case). Returns whether it does."""
+    if os.path.exists(lib_path) and not force:
         return True
     if not os.path.exists(source):
         return False
@@ -50,12 +50,13 @@ def build_library(source: str, lib_path: str, libs=()) -> bool:
             os.remove(tmp)
 
 
-def ensure_built() -> bool:
-    """Build the shared library if needed. Returns availability."""
+def ensure_built(force: bool = False) -> bool:
+    """Build the shared library if needed (``force``: rebuild it and load
+    it again). Returns availability."""
     global _lib
-    if _lib is not None:
+    if _lib is not None and not force:
         return True
-    if not build_library(_SOURCE, _LIB_PATH, ["-lz"]):
+    if not build_library(_SOURCE, _LIB_PATH, ["-lz"], force=force):
         return False
     try:
         lib = ctypes.CDLL(_LIB_PATH)

@@ -1,12 +1,17 @@
-"""Grayscale image files without OpenCV: a PNG decoder and encoder on
-stdlib ``zlib`` and numpy, and a binary PGM reader.
+"""Image files read as grayscale without OpenCV: a PNG decoder and encoder
+on stdlib ``zlib`` and numpy, and a binary PGM reader.
 
 ``imread_gray`` returns what ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)``
-returns for the files a grayscale sequence holds: 8-bit grayscale PNG (any
-of the five row filters, not interlaced), 16-bit grayscale PNG reduced to
-8 bits by keeping the high byte, as OpenCV does, and binary (P5) PGM with
-a maxval of 255. Anything else raises ``ValueError``. ``write_png`` writes
-an 8-bit grayscale PNG (every row filtered with Up).
+returns for the files a camera sequence holds: PNG of colour type 0 (gray),
+2 (RGB), 4 (gray + alpha) or 6 (RGBA) at 8 or 16 bits, any of the five row
+filters, not interlaced; and binary (P5) PGM with a maxval of 255. 16-bit
+samples keep their high byte, as OpenCV keeps it for gray. Colour becomes
+gray by native/loader.cpp's own integer luma, ``(299 R + 587 G + 114 B) //
+1000``, with alpha dropped; libpng, under OpenCV, rounds its fixed-point
+luma instead, so a colour pixel may read one grey level apart from
+OpenCV's. Palette PNG, interlaced PNG, JPEG and 16-bit PGM raise
+``ValueError``. ``write_png`` writes an 8-bit grayscale PNG (every row
+filtered with Up).
 
 Rows are unfiltered by ``csrc/png_unfilter.cpp``, built with g++ on first
 use into the git-ignored ``_build/``; where it does not build, by numpy
@@ -34,12 +39,18 @@ _unfilter_fn = None     # the C function once loaded; False where it does not bu
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
+# Samples per pixel of the PNG colour types read (3, palette, is not).
+CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
 class ImageHeader(NamedTuple):
-    """Width, height and sample depth of an image file."""
+    """Width, height, sample depth and PNG colour type (0 for PGM) of an
+    image file."""
 
     width: int
     height: int
     bit_depth: int
+    color_type: int = 0
 
 
 def _chunks(data: bytes):
@@ -60,8 +71,9 @@ def _ihdr(body: bytes):
     if len(body) != 13:
         raise ValueError("bad IHDR chunk")
     w, h, depth, color, comp, filt, interlace = struct.unpack(">IIBBBBB", body)
-    if color != 0:
-        raise ValueError(f"PNG color type {color}: only grayscale (0) is read")
+    if color not in CHANNELS:
+        raise ValueError(f"PNG color type {color}"
+                         f"{' (palette)' if color == 3 else ''}: only 0, 2, 4 and 6 are read")
     if depth not in (8, 16):
         raise ValueError(f"PNG bit depth {depth}: only 8 and 16 are read")
     if comp != 0 or filt != 0:
@@ -70,7 +82,7 @@ def _ihdr(body: bytes):
         raise ValueError("interlaced PNG is not read")
     if w == 0 or h == 0:
         raise ValueError("empty PNG")
-    return w, h, depth
+    return w, h, depth, color
 
 
 def _pgm_header(data: bytes):
@@ -99,8 +111,7 @@ def read_header(path: str) -> ImageHeader:
     if head.startswith(PNG_SIGNATURE):
         if head[12:16] != b"IHDR":
             raise ValueError(f"{path}: PNG without a leading IHDR chunk")
-        w, h, depth = _ihdr(head[16:29])
-        return ImageHeader(w, h, depth)
+        return ImageHeader(*_ihdr(head[16:29]))
     if head.startswith(b"P5"):
         w, h, maxval, _ = _pgm_header(head)
         return ImageHeader(w, h, 8 if maxval < 256 else 16)
@@ -181,8 +192,14 @@ def _unfilter_rows(rows: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarra
     return out
 
 
+def _luma(px: np.ndarray) -> np.ndarray:
+    """native/loader.cpp's gray of (..., >= 3) uint8 RGB(A) samples."""
+    r, g, b = (px[..., i].astype(np.uint32) for i in range(3))
+    return ((299 * r + 587 * g + 114 * b) // 1000).astype(np.uint8)
+
+
 def decode_png(data: bytes) -> np.ndarray:
-    """(H, W) uint8 from the bytes of a grayscale PNG (16-bit: high byte)."""
+    """(H, W) uint8 gray from the bytes of a PNG (module docstring)."""
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError("not a PNG")
     size, idat = None, []
@@ -193,12 +210,14 @@ def decode_png(data: bytes) -> np.ndarray:
             idat.append(body)
     if size is None or not idat:
         raise ValueError("PNG without IHDR or IDAT")
-    w, h, depth = size
-    bpp = depth // 8
+    w, h, depth, color = size
+    channels = CHANNELS[color]
+    bpp = channels * depth // 8
     rows = _unfilter(zlib.decompress(b"".join(idat)), h, w * bpp, bpp)
-    if depth == 16:
-        return np.ascontiguousarray(rows.reshape(h, w, 2)[:, :, 0])
-    return rows
+    px = rows.reshape(h, w, channels, depth // 8)[..., 0]     # 16-bit: the high byte
+    if channels >= 3:
+        return _luma(px)
+    return np.ascontiguousarray(px[..., 0])
 
 
 def decode_pgm(data: bytes) -> np.ndarray:
@@ -214,7 +233,7 @@ def decode_pgm(data: bytes) -> np.ndarray:
 
 
 def imread_gray(path: str) -> np.ndarray:
-    """A grayscale PNG or PGM file as (H, W) uint8."""
+    """A PNG or PGM file as (H, W) uint8 gray."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(PNG_SIGNATURE):

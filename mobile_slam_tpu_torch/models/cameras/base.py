@@ -78,7 +78,7 @@ def from_params(model_type: str, params, width: int, height: int,
                   _project=MODELS[mt].project)
 
 
-def make_camera(cam_cfg: cfgmod.CameraConfig, *, dtype=torch.float32,
+def make_camera(cam_cfg: cfgmod.CameraConfig, dtype=torch.float32, *,
                 device) -> Camera:
     """Build a Camera from config; a Scaramuzza config without an inverse
     polynomial gets one fitted over half the image diagonal."""

@@ -57,7 +57,7 @@ def lift_unit_plane(params: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     return ray / ray[..., 2:3]
 
 
-def make_params(mu, mv, u0, v0, k2=0.0, k3=0.0, k4=0.0, k5=0.0, *,
-                dtype=torch.float32, device) -> torch.Tensor:
+def make_params(mu, mv, u0, v0, k2=0.0, k3=0.0, k4=0.0, k5=0.0,
+                dtype=torch.float32, *, device) -> torch.Tensor:
     return torch.tensor([mu, mv, u0, v0, k2, k3, k4, k5], dtype=dtype,
                         device=device)

@@ -53,6 +53,6 @@ def lift_sphere(params: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
 
 
 def make_params(gamma1, gamma2, u0, v0, k1=0.0, k2=0.0, p1=0.0, p2=0.0, xi=1.0,
-                *, dtype=torch.float32, device) -> torch.Tensor:
+                dtype=torch.float32, *, device) -> torch.Tensor:
     return torch.tensor([gamma1, gamma2, u0, v0, k1, k2, p1, p2, xi],
                         dtype=dtype, device=device)

@@ -40,7 +40,7 @@ def lift(params: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     return torch.cat([p_u, torch.ones_like(p_u[..., :1])], dim=-1)
 
 
-def make_params(fx, fy, cx, cy, k1=0.0, k2=0.0, p1=0.0, p2=0.0, *,
-                dtype=torch.float32, device) -> torch.Tensor:
+def make_params(fx, fy, cx, cy, k1=0.0, k2=0.0, p1=0.0, p2=0.0,
+                dtype=torch.float32, *, device) -> torch.Tensor:
     return torch.tensor([fx, fy, cx, cy, k1, k2, p1, p2], dtype=dtype,
                         device=device)

@@ -66,8 +66,8 @@ def fit_inverse_poly(poly: np.ndarray, max_rho: float,
     return coeffs
 
 
-def make_params(poly, inv_poly, center, affine=(1.0, 0.0, 0.0), *,
-                dtype=torch.float32, device) -> dict:
+def make_params(poly, inv_poly, center, affine=(1.0, 0.0, 0.0),
+                dtype=torch.float32, *, device) -> dict:
     def t(v):
         return torch.as_tensor(np.asarray(v, dtype=np.float64), dtype=dtype,
                                device=device)

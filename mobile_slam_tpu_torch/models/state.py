@@ -48,7 +48,7 @@ class FeatureTable(NamedTuple):
         return self.fid >= 0
 
 
-def init_window(max_imu: int, *, dtype=torch.float32, device) -> WindowState:
+def init_window(max_imu: int, dtype=torch.float32, *, device) -> WindowState:
     W = NUM_SLOTS
     kw = dict(dtype=dtype, device=device)
     zeros3 = torch.zeros((W, 3), **kw)
@@ -65,7 +65,7 @@ def init_window(max_imu: int, *, dtype=torch.float32, device) -> WindowState:
     )
 
 
-def init_feature_table(max_features: int, *, dtype=torch.float32,
+def init_feature_table(max_features: int, dtype=torch.float32, *,
                        device) -> FeatureTable:
     F, W = max_features, NUM_SLOTS
     kw = dict(dtype=dtype, device=device)

@@ -785,10 +785,10 @@ def _extract_vmap(info, in_dims, img, centers, window):
     return _extract_launch(*prep), (0, 0, 0)
 
 
-def track_pyramidal(prev_pyr, next_pyr, pts, active, params: LKParams):
+def track_pyramidal(prev_pyr, next_pyr, prev_pts, active, params: LKParams):
     """Coarse-to-fine KLT. prev_pyr/next_pyr: sequences of (H/2^l, W/2^l)
-    images; pts (K, 2); active (K,). Returns (pos (K, 2) float32, ok (K,))."""
-    return _track_op(list(prev_pyr), list(next_pyr), pts, active, params.window,
+    images; prev_pts (K, 2); active (K,). Returns (pos (K, 2) float32, ok (K,))."""
+    return _track_op(list(prev_pyr), list(next_pyr), prev_pts, active, params.window,
                      params.iters, float(params.eps), float(params.min_eig_threshold))
 
 

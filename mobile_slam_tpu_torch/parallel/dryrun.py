@@ -90,6 +90,8 @@ def run_checks(rank: int, world: int, device: str = "cuda", reps: int = 3) -> di
     """The three checks on this rank of an initialized group of ``world``
     ranks; raises on a failed check."""
     mesh = batch.make_mesh(None if torch.device(device).type == "cuda" else [device] * world)
+    if not isinstance(mesh, batch.RankMesh):    # a group of one rank: make_mesh gives its device
+        mesh = batch.RankMesh(dist.group.WORLD, rank, world, mesh, "seq")
     lead = rank == 0
     out = {}
 

@@ -72,15 +72,15 @@ class Prior(NamedTuple):
     td0: torch.Tensor
 
 
-def zero_prior(ex_t, ex_q, td=0.0) -> Prior:
-    dtype, dev = ex_t.dtype, ex_t.device
-    kw = dict(dtype=dtype, device=dev)
+def zero_prior(ex_t, ex_q, dtype=torch.float32, td=0.0) -> Prior:
+    kw = dict(dtype=dtype, device=ex_t.device)
     return Prior(
         J0=torch.zeros((S, S), **kw), r0=torch.zeros((S,), **kw),
         p0=torch.zeros((W, 3), **kw),
         q0=torch.tensor([1.0, 0.0, 0.0, 0.0], **kw).repeat(W, 1),
         v0=torch.zeros((W, 3), **kw), ba0=torch.zeros((W, 3), **kw),
-        bg0=torch.zeros((W, 3), **kw), ex_t0=ex_t.clone(), ex_q0=ex_q.clone(),
+        bg0=torch.zeros((W, 3), **kw), ex_t0=ex_t.to(dtype, copy=True),
+        ex_q0=ex_q.to(dtype, copy=True),
         td0=torch.as_tensor(td, **kw).clone(),
     )
 

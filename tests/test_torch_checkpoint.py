@@ -75,7 +75,7 @@ def test_jax_snapshot_loads_field_for_field(tmp_path):
     jckpt.save_state(path, jstate, jtracker)
 
     params = convert.static_params(tonp(jp), dtype=F64, device="cpu")
-    template = est.init_state(cfg, params)
+    template = est.init_state(cfg, params, F64)
     ttemplate = trk.init_tracker_state(cfg.tracker, cfg.camera.height, cfg.camera.width,
                                        dtype=F64, device="cpu")
     state, tracker = ckpt.load_state(path, template, ttemplate)

@@ -2,12 +2,13 @@
 converter, IMU preintegration, the normal equations at
 ``make_example_state(tiny_config())``, and ``bookkeeping_step`` +
 ``solve_and_slide`` through a keyframe (margin-old) and then a non-keyframe
-(margin-new) step.
+(margin-new) step; and the flagship step unit (``entry.entry``) built at
+float64 against the same reference programs.
 
 Bars: preintegration within 1e-7 (tests/test_preintegration_parallel.py);
 normal equations rtol 1e-8; poses within 1e-6 m / 1e-6; the prior compared
 as J0ᵀJ0 and J0ᵀr0 (QR and eigh row signs are not unique) within 1e-6
-relative to its largest entry.
+relative to its largest entry; the entry unit within 1e-9.
 """
 
 import numpy as np
@@ -25,7 +26,7 @@ from mobile_slam_tpu.factors.imu_factor import sqrt_info_from_cov as jsqrt_info
 from mobile_slam_tpu.imu import preintegration as jpre
 from mobile_slam_tpu.models.state import eligible_mask as jelig
 from mobile_slam_tpu.solver import assembly as jasm
-from mobile_slam_tpu_torch import convert
+from mobile_slam_tpu_torch import convert, entry
 from mobile_slam_tpu_torch.engine import estimator as est
 from mobile_slam_tpu_torch.factors.imu_factor import sqrt_info_from_cov
 from mobile_slam_tpu_torch.imu import preintegration as pre
@@ -33,6 +34,7 @@ from mobile_slam_tpu_torch.models.state import eligible_mask
 from mobile_slam_tpu_torch.solver import assembly
 
 POSE_TOL = 1e-6
+ENTRY_TOL = 1e-9
 
 # The reference's preintegration functions as one program each: eagerly,
 # their scans compile op by op on every call; jitted, once per shape.
@@ -188,3 +190,27 @@ def test_bookkeeping_and_solve_keyframe_then_general(example):
         inp = inp._replace(ts=inp.ts + 0.05)
         ti = ti._replace(ts=ti.ts + 0.05)
     assert np.abs(np.asarray(st.prior.J0)).max() > 0     # margin-new saw a live prior
+
+
+def test_entry_unit_float64_matches_reference(example):
+    """``entry.entry(dtype=float64)``'s unit (tests/test_torch_entry.py holds
+    the float32 one against ``__graft_entry__.entry()``): its example state
+    equals the reference's, and one step (bookkeeping, then solve_and_slide
+    on the keyframe flag as a tensor; the reference's flag traced under
+    jit) gives p, q and the slid window within ENTRY_TOL."""
+    cfg, jp, st, inp = example
+    step, (ts, ti) = entry.entry(device="cpu", dtype=F64)
+    want = convert.to_numpy(convert.estimator_state(tonp(st), dtype=F64, device="cpu"))
+    for a, b in zip(jax.tree.leaves(tuple(convert.to_numpy(ts))), jax.tree.leaves(tuple(want))):
+        np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-12)
+    st, is_kf = jax.jit(jest.bookkeeping_step)(st, inp, jp)
+    st, p_j, q_j, _ = jax.jit(jest.solve_and_slide, static_argnums=(3,))(
+        st, is_kf, jp, cfg.estimator.num_iterations)
+    ts, p_t, q_t = step(ts, ti)
+    np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), atol=ENTRY_TOL, rtol=0)
+    np.testing.assert_allclose(q_t.numpy(), np.asarray(q_j), atol=ENTRY_TOL, rtol=0)
+    for name in ("p", "q", "v"):
+        np.testing.assert_allclose(getattr(ts.window, name).numpy(),
+                                   np.asarray(getattr(st.window, name)), atol=ENTRY_TOL,
+                                   rtol=0, err_msg=name)
+    np.testing.assert_array_equal(ts.table.fid.numpy(), np.asarray(st.table.fid))

@@ -39,8 +39,10 @@ def test_port_imports_without_jax_or_triton():
 @pytest.mark.parametrize("entry", ["VIOEngine", "ChunkedImageServer", "call_overhead.run",
                                    "lk_pack_probe.run", "gateway.serve",
                                    "gateway.ClientSession", "logging.device_trace",
-                                   "launch.run_ranks", "dryrun.dryrun_multichip"])
+                                   "launch.run_ranks", "dryrun.dryrun_multichip",
+                                   "entry.entry"])
 def test_entry_points_default_to_the_card(entry):
+    from mobile_slam_tpu_torch import entry as unit
     from mobile_slam_tpu_torch.engine.serving import ChunkedImageServer
     from mobile_slam_tpu_torch.engine.vio_engine import VIOEngine
     from mobile_slam_tpu_torch.parallel import dryrun, launch
@@ -52,8 +54,8 @@ def test_entry_points_default_to_the_card(entry):
           "call_overhead.run": call_overhead.run, "lk_pack_probe.run": lk_pack_probe.run,
           "gateway.serve": gateway.serve, "gateway.ClientSession": gateway.ClientSession,
           "logging.device_trace": logging.device_trace.__wrapped__,
-          "launch.run_ranks": launch.run_ranks, "dryrun.dryrun_multichip": dryrun.dryrun_multichip
-          }[entry]
+          "launch.run_ranks": launch.run_ranks, "dryrun.dryrun_multichip": dryrun.dryrun_multichip,
+          "entry.entry": unit.entry}[entry]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 

@@ -4,7 +4,10 @@
    bit for bit on OpenCV-written 8- and 16-bit grayscale PNG and binary
    PGM, and decodes each of the five PNG row filters (built here) at both
    depths, through the C row unfilter and through the Python rows alike;
-   the encoder round-trips through OpenCV; anything else raises.
+   RGB, gray + alpha and RGBA PNG at 8 and 16 bits read within GRAY_BAR
+   grey levels of OpenCV, through io/png.py and through the native loader
+   (8 bits), which agree with each other exactly; the encoder round-trips
+   through OpenCV; palette, interlaced, JPEG and 16-bit PGM raise.
 2. ``io/synthetic.py`` against ``scripts/make_synthetic_dataset.py`` for
    the same ``SimConfig`` (1.5 s, noise, seed 7): the IMU, mocap and image
    CSVs are byte-equal and the frames the same pixels.
@@ -35,6 +38,12 @@ from mobile_slam_tpu_torch.io import trajectory as ttraj
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEQ_SECONDS = 1.5
+# Grey levels between a colour PNG read here and by OpenCV: the port and
+# native/loader.cpp truncate (299 R + 587 G + 114 B) / 1000, libpng rounds
+# its own fixed-point luma. Measured: at most 1, on about 0.3% of the
+# pixels at 8 bits and half of them at 16 (libpng converts before it drops
+# the low byte); gray + alpha reads exactly.
+GRAY_BAR = 1
 
 
 # ---------------------------------------------------------------------------
@@ -68,12 +77,13 @@ def _paeth(a, b, c):
     return a if pa <= pb and pa <= pc else (b if pb <= pc else c)
 
 
-def _png_with_filter(img: np.ndarray, ftype: int) -> bytes:
-    """A grayscale PNG of ``img`` whose every row uses row filter ``ftype``
-    (the PNG specification's definitions, byte by byte)."""
-    h, w = img.shape
-    bpp = img.itemsize
-    raw = img.astype(">u2").tobytes() if bpp == 2 else img.tobytes()
+def _png_with_filter(img: np.ndarray, ftype: int, color: int = 0) -> bytes:
+    """A PNG of colour type ``color`` of ``img`` ((H, W) or (H, W, samples))
+    whose every row uses row filter ``ftype`` (the PNG specification's
+    definitions, byte by byte)."""
+    h, w = img.shape[:2]
+    bpp = img.itemsize * png.CHANNELS[color]
+    raw = img.astype(">u2").tobytes() if img.itemsize == 2 else img.tobytes()
     stride = w * bpp
     out, prev = bytearray(), bytes(stride)
     for y in range(h):
@@ -91,7 +101,7 @@ def _png_with_filter(img: np.ndarray, ftype: int) -> bytes:
                 + struct.pack(">I", zlib.crc32(kind + body)))
 
     return (png.PNG_SIGNATURE
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8 * bpp, 0, 0, 0, 0))
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8 * img.itemsize, color, 0, 0, 0))
             + chunk(b"IDAT", zlib.compress(bytes(out)))
             + chunk(b"IEND", b""))
 
@@ -133,12 +143,42 @@ def test_encoder_round_trips_through_opencv(tmp_path):
     np.testing.assert_array_equal(png.imread_gray(path), img)
 
 
-@pytest.mark.parametrize("what", ["color", "interlaced", "pgm16", "jpeg"])
+def _color_image(color: int, depth: int, h=37, w=53, seed=0) -> np.ndarray:
+    """(H, W, samples) of colour type ``color``: each sample a smooth image
+    of its own, so that the row filters see runs."""
+    return np.stack([_image(depth, h, w, seed + 10 * c) for c in range(png.CHANNELS[color])], -1)
+
+
+@pytest.mark.parametrize("depth,route", [(8, "pure"), (8, "native"), (16, "pure")])
+@pytest.mark.parametrize("color", [2, 4, 6])
+def test_color_png_matches_opencv(tmp_path, color, depth, route):
+    """Colour PNG reads as OpenCV reads it, within GRAY_BAR grey levels, through
+    io/png.py (8 and 16 bits) and the native loader (8 bits, the only depth
+    it decodes: the same integer luma, so the two agree exactly)."""
+    img = _color_image(color, depth, seed=color)
+    path = str(tmp_path / "c.png")
+    with open(path, "wb") as f:
+        f.write(_png_with_filter(img, 4, color))          # Paeth: every byte lane
+    ref = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+    assert png.read_header(path) == png.ImageHeader(53, 37, depth, color)
+    out = png.imread_gray(path)
+    if route == "native":
+        assert native_loader.ensure_built(), "g++ and zlib did not build native/loader.cpp"
+        native = native_loader.decode_image(path, 53, 37)
+        np.testing.assert_array_equal(native, out)
+        out = native
+    assert out.dtype == np.uint8 and out.shape == ref.shape
+    assert np.abs(out.astype(int) - ref).max() <= GRAY_BAR
+
+
+@pytest.mark.parametrize("what", ["palette", "interlaced", "pgm16", "jpeg"])
 def test_decoder_raises_on_other_files(tmp_path, what):
     img = _image(8)
-    if what == "color":
-        path = str(tmp_path / "c.png")
-        cv2.imwrite(path, np.stack([img, img, img], -1))
+    if what == "palette":
+        data = bytearray(_png_with_filter(img, 0))
+        data[8 + 8 + 9] = 3             # IHDR colour type 3 (CRC left stale)
+        path = str(tmp_path / "p.png")
+        open(path, "wb").write(bytes(data))
     elif what == "interlaced":
         data = bytearray(_png_with_filter(img, 0))
         data[8 + 8 + 12] = 1            # IHDR interlace byte (CRC left stale)
@@ -271,6 +311,50 @@ def test_sixteen_bit_sequence_reads_through_the_pure_decoder(tmp_path):
     ds = tds.EurocDataset(str(tmp_path))
     np.testing.assert_array_equal(ds.read_image(0), cv2.imread(
         str(base / "cam0" / "data" / "1000.png"), cv2.IMREAD_GRAYSCALE))
+
+
+@pytest.mark.parametrize("use_native", [False, True])
+def test_color_sequence_matches_reference(tmp_path, use_native):
+    """A 5-frame RGB / RGBA PNG sequence in EuRoC layout (as the KITTI-360
+    converter links camera PNGs) reads through ``EurocDataset`` as through
+    the reference's, which reads with ``cv2.imread(IMREAD_GRAYSCALE)``,
+    within GRAY_BAR, by ``read_image`` and by ``image_stream``."""
+    base = tmp_path / "mav0"
+    (base / "cam0" / "data").mkdir(parents=True)
+    (base / "imu0").mkdir()
+    (base / "imu0" / "data.csv").write_text("1000,0,0,0,0,0,9.8\n")
+    rows = []
+    for i in range(5):
+        name = f"{1000 + i}.png"
+        color = (2, 6)[i % 2]
+        (base / "cam0" / "data" / name).write_bytes(
+            _png_with_filter(_color_image(color, 8, seed=20 + i), i % 5, color))
+        rows.append(f"{1000 + i},{name}\n")
+    (base / "cam0" / "data.csv").write_text("".join(rows))
+    if use_native:
+        assert native_loader.ensure_built(), "g++ and zlib did not build native/loader.cpp"
+    t = tds.EurocDataset(str(tmp_path), use_native=use_native)
+    j = jds.EurocDataset(str(tmp_path), use_native=False)
+    assert t._native == use_native and len(t) == len(j) == 5
+    want = [j.read_image(i) for i in range(5)]
+    stream = t.image_stream(53, 37, prefetch=2)
+    got = [img.copy() for _, img in stream]
+    if use_native:
+        stream.close()
+    for i in range(5):
+        for out in (t.read_image(i), got[i]):
+            assert out.shape == want[i].shape
+            assert np.abs(out.astype(int) - want[i]).max() <= GRAY_BAR
+
+
+def test_native_loader_rebuilds_on_force():
+    """``ensure_built(force=True)`` compiles native/loader.cpp again (the
+    reference's parameter) and leaves it usable."""
+    assert native_loader.ensure_built()
+    before = os.stat(native_loader._LIB_PATH).st_mtime_ns
+    assert native_loader.ensure_built(force=True)
+    assert os.stat(native_loader._LIB_PATH).st_mtime_ns > before
+    assert native_loader.available()
 
 
 # ---------------------------------------------------------------------------

@@ -260,7 +260,7 @@ def test_recovers_injected_offset():
                          cam_time_offset=TD_TRUE)
     data = sim.simulate(scfg, cam, cfg.camera.r_ic_mat, cfg.camera.t_ic_vec)
     params = est.make_params(cfg, dtype=F64, device="cpu")
-    state = est.init_state(cfg, params)
+    state = est.init_state(cfg, params, F64)
     W = est.W
 
     def put(a, i, v):
