@@ -856,10 +856,16 @@ def phase_streaming(lk, data, cam, cfg, sim, example):
     return out
 
 
+def _span_ms(spans, name) -> list:
+    """Durations in ms of the recorded spans named ``name`` (utils/logging.py)."""
+    return [1e3 * sp.seconds for sp in spans if sp.name == name]
+
+
 def phase_serving(lk, cfg, sim, example, make_camera):
     from mobile_slam_tpu_torch.engine.serving import ChunkedImageServer
     from mobile_slam_tpu_torch.eval.evaluator import compute_ate
     from mobile_slam_tpu_torch.probes.sync_sites import SyncSites
+    from mobile_slam_tpu_torch.utils import logging as slog
 
     cam = make_camera(cfg.camera, dtype=torch.float64, device="cpu")
     data = sim.simulate(example.bench_sim_config(SERVE_SECONDS), cam,
@@ -885,24 +891,26 @@ def phase_serving(lk, cfg, sim, example, make_camera):
     lk.reset_launch_counts()
     t_start = time.perf_counter()
     sync_ctx = None
-    for fi in range(n_img):
-        img = sim.render_frame(data, fi, cam, example.R_IC, cfg.camera.t_ic_vec)
-        ts = data.cam_ts[fi]
-        imu_i = _feed_imu(server, data, imu_i, ts)
-        # Count the host syncs of the second chunk, from its first buffered
-        # frame to the call that runs it.
-        if (chunk_syncs is None and sync_ctx is None and server.n_chunks == 1
-                and server.mode == "chunked" and not server._buf):
-            sync_ctx = SyncSites().__enter__()
-            chunks_before = server.n_chunks
-        out = server.process_frame(img, ts)
-        if sync_ctx is not None and server.n_chunks > chunks_before:
-            sync_ctx.__exit__(None, None, None)
-            chunk_syncs, sync_ctx = sum(sync_ctx.sites.values()), None
-        results += out
-    results += server.flush()
+    with slog.tracing():
+        for fi in range(n_img):
+            img = sim.render_frame(data, fi, cam, example.R_IC, cfg.camera.t_ic_vec)
+            ts = data.cam_ts[fi]
+            imu_i = _feed_imu(server, data, imu_i, ts)
+            # Count the host syncs of the second chunk, from its first buffered
+            # frame to the call that runs it.
+            if (chunk_syncs is None and sync_ctx is None and server.n_chunks == 1
+                    and server.mode == "chunked" and not server._buf):
+                sync_ctx = SyncSites().__enter__()
+                chunks_before = server.n_chunks
+            out = server.process_frame(img, ts)
+            if sync_ctx is not None and server.n_chunks > chunks_before:
+                sync_ctx.__exit__(None, None, None)
+                chunk_syncs, sync_ctx = sum(sync_ctx.sites.values()), None
+            results += out
+        results += server.flush()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
+    chunk_s = sum(_span_ms(slog.drain(), "chunk")) / 1e3
     counts = dict(lk.launch_counts)
 
     _check(server.n_chunks >= 1, "the server never entered chunked mode")
@@ -920,16 +928,16 @@ def phase_serving(lk, cfg, sim, example, make_camera):
                f"{n_stream} streamed frames")
     ate = compute_ate(np.asarray([r.ts for r in ok]), est_p, data.cam_ts, data.gt_p)
     _check(ate.rmse < ATE_TOL, f"ATE {ate.rmse} m")
-    ms_chunked = 1e3 * server.chunk_wall_s / server.frames_chunked
+    ms_chunked = 1e3 * chunk_s / server.frames_chunked
     out = dict(counts=counts, ate=float(ate.rmse), n_poses=len(ok),
-               ms_per_chunked_frame=ms_chunked, chunked_fps=server.chunked_fps(),
+               ms_per_chunked_frame=ms_chunked, chunked_fps=server.frames_chunked / chunk_s,
                syncs_per_chunked_frame=chunk_syncs / CHUNK)
     print(f"[phase 4] {n_img} frames: {n_stream} streamed, {server.n_chunks} chunks "
           f"of {CHUNK} ({server.frames_chunked} real frames, {loop['frames']} through "
           f"the loop), {server.n_recoveries} recoveries, {len(ok)} ok poses; "
           f"ATE sim3 rmse {ate.rmse:.4f} m over {ate.num_pairs} pairs (JAX band "
-          f"{JAX_BAND}); {ms_chunked:.2f} ms per chunked frame, chunked_fps "
-          f"{server.chunked_fps():.3f}, whole run {wall:.1f} s; host syncs "
+          f"{JAX_BAND}); {ms_chunked:.2f} ms per chunked frame (the chunk spans), chunked_fps "
+          f"{out['chunked_fps']:.3f}, whole run {wall:.1f} s; host syncs "
           f"{chunk_syncs} over one chunk = {chunk_syncs / CHUNK:.1f} per chunked "
           f"frame; launches {counts}, chunk loop {loop}", flush=True)
     return out
@@ -2533,6 +2541,7 @@ def phase_adversarial(lk, cfg, arms=ADV_ARMS, device="cuda"):
     from mobile_slam_tpu_torch.eval import adversarial as adv
     from mobile_slam_tpu_torch.eval import simulation as sim
     from mobile_slam_tpu_torch.eval.evaluator import compute_ate
+    from mobile_slam_tpu_torch.utils import logging as slog
 
     r_ic, t_ic = cfg.camera.r_ic_mat, np.asarray(cfg.camera.t_ic_vec)
     out = {"arms": []}
@@ -2565,19 +2574,21 @@ def phase_adversarial(lk, cfg, arms=ADV_ARMS, device="cuda"):
         server._step = counted_step
         est_ts, est_p, imu_i = [], [], 0
         t0 = time.perf_counter()
-        for fi, img in enumerate(frames):
-            imu_i = _feed_imu(server, data, imu_i, data.cam_ts[fi])
-            for r in server.process_frame(img, data.cam_ts[fi]):
+        with slog.tracing():
+            for fi, img in enumerate(frames):
+                imu_i = _feed_imu(server, data, imu_i, data.cam_ts[fi])
+                for r in server.process_frame(img, data.cam_ts[fi]):
+                    if r.ok:
+                        est_ts.append(r.ts)
+                        est_p.append(r.p)
+            for r in server.flush():
                 if r.ok:
                     est_ts.append(r.ts)
                     est_p.append(r.p)
-        for r in server.flush():
-            if r.ok:
-                est_ts.append(r.ts)
-                est_p.append(r.p)
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        replay_ms = _span_ms(slog.drain(), "recover")
         streamed += server.frames_streamed
         est_p = np.asarray(est_p, np.float64)
         _check(len(est_p) > 10 and bool(np.isfinite(est_p).all()),
@@ -2587,7 +2598,7 @@ def phase_adversarial(lk, cfg, arms=ADV_ARMS, device="cuda"):
             _check(ate.rmse < ATE_TOL, f"level 0 (clean oracle) ATE {ate.rmse} m")
         arm = dict(level=level, seconds=seconds, frames=len(frames), poses=len(est_p),
                    ate=float(ate.rmse), fps=len(frames) / wall, render_s=render_s,
-                   recoveries=server.n_recoveries, replay_ms=list(server.replay_ms),
+                   recoveries=server.n_recoveries, replay_ms=replay_ms,
                    chunks=server.n_chunks, streamed=server.frames_streamed)
         out["arms"].append(arm)
         print(f"[phase 10] adversarial level {level}, {seconds} s, seed {ADV_SEED}: "
@@ -2595,7 +2606,7 @@ def phase_adversarial(lk, cfg, arms=ADV_ARMS, device="cuda"):
               f"{ate.num_pairs} pairs, {arm['fps']:.3f} fps, rendered in {render_s:.1f} s, "
               f"{server.n_chunks} chunks of {ADV_CHUNK}, {server.frames_streamed} frames "
               f"streamed, {server.n_recoveries} recoveries, replay ms "
-              f"{[round(x, 1) for x in server.replay_ms]} (JAX: {ADV_JAX})", flush=True)
+              f"{[round(x, 1) for x in replay_ms]} (JAX: {ADV_JAX})", flush=True)
     counts = dict(lk.launch_counts)
     for k, n in LK_PER_FRAME.items():
         _check(counts[k] == n * (loop["frames"] + streamed),
@@ -2615,6 +2626,7 @@ def phase_tail_replay(lk, cfg, sim, example, make_camera, device="cuda"):
     gate's 10 m/s), then the stretch on to the end: the server recovers,
     replays the failed frames and initializes again."""
     from mobile_slam_tpu_torch.engine.serving import ChunkedImageServer
+    from mobile_slam_tpu_torch.utils import logging as slog
 
     cam = make_camera(cfg.camera, dtype=torch.float64, device="cpu")
     data = sim.simulate(example.bench_sim_config(TAIL_SECONDS), cam,
@@ -2635,27 +2647,29 @@ def phase_tail_replay(lk, cfg, sim, example, make_camera, device="cuda"):
     eng.process_frame, server._frame_input = process_frame, frame_input
     after, imu_i, blank, chunks_after = [], 0, None, 0
     t0 = time.perf_counter()
-    for fi in range(len(data.frames)):
-        img = sim.render_frame(data, fi, cam, example.R_IC, cfg.camera.t_ic_vec)
-        knock = blank is not None and fi in blank
-        if knock:
-            img = np.zeros_like(img)
-        while imu_i < len(data.imu_ts) and data.imu_ts[imu_i] <= data.cam_ts[fi] + 1e-9:
-            server.push_imu(data.imu_ts[imu_i],
-                            data.imu_acc[imu_i] + (TAIL_KNOCK if knock else 0.0) * np.eye(3)[0],
-                            data.imu_gyr[imu_i])
-            imu_i += 1
-        recovered, n_chunks = server.n_recoveries > 0, server.n_chunks
-        out = server.process_frame(img, data.cam_ts[fi])
-        if recovered:
-            after += [r.p for r in out if r.ok]
-            chunks_after += server.n_chunks - n_chunks
-        if blank is None and server.mode == "chunked":
-            first = fi + 1      # the first chunk's frames: first .. first + TAIL_CHUNK - 1
-            blank = range(first + TAIL_CHUNK - TAIL_BLANK, first + TAIL_CHUNK)
+    with slog.tracing():
+        for fi in range(len(data.frames)):
+            img = sim.render_frame(data, fi, cam, example.R_IC, cfg.camera.t_ic_vec)
+            knock = blank is not None and fi in blank
+            if knock:
+                img = np.zeros_like(img)
+            while imu_i < len(data.imu_ts) and data.imu_ts[imu_i] <= data.cam_ts[fi] + 1e-9:
+                server.push_imu(data.imu_ts[imu_i],
+                                data.imu_acc[imu_i] + (TAIL_KNOCK if knock else 0.0) * np.eye(3)[0],
+                                data.imu_gyr[imu_i])
+                imu_i += 1
+            recovered, n_chunks = server.n_recoveries > 0, server.n_chunks
+            out = server.process_frame(img, data.cam_ts[fi])
+            if recovered:
+                after += [r.p for r in out if r.ok]
+                chunks_after += server.n_chunks - n_chunks
+            if blank is None and server.mode == "chunked":
+                first = fi + 1      # the first chunk's frames: first .. first + TAIL_CHUNK - 1
+                blank = range(first + TAIL_CHUNK - TAIL_BLANK, first + TAIL_CHUNK)
     if device != "cpu":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    replay_ms = _span_ms(slog.drain(), "recover")
     _check(blank is not None, "tail replay: the server never entered chunked mode")
     _check(server.n_recoveries >= 1, f"tail replay: {server.n_recoveries} recoveries after "
            f"{TAIL_BLANK} blank frames closing a chunk of {TAIL_CHUNK}")
@@ -2677,13 +2691,13 @@ def phase_tail_replay(lk, cfg, sim, example, make_camera, device="cuda"):
            f"tail replay: {len(after)} poses after the recovery, finite "
            f"{bool(np.isfinite(after).all()) if len(after) else None}")
     _check(chunks_after >= 1, "tail replay: the server did not return to chunked mode")
-    out = dict(recoveries=server.n_recoveries, replay_ms=list(server.replay_ms),
+    out = dict(recoveries=server.n_recoveries, replay_ms=replay_ms,
                replayed=len(replayed), poses_after=len(after), chunks_after=chunks_after,
                frames=len(data.frames), wall_s=wall)
     print(f"[phase 10] tail replay: {TAIL_BLANK} blank frames with a {TAIL_KNOCK} m/s^2 knock "
           f"closing chunk 1 of {TAIL_CHUNK} (frames {blank.start}-{last}); {server.n_recoveries} "
           f"recoveries, {len(replayed)} frames replayed through process_frame(imu_override=) "
-          f"with their own IMU slices, replay ms {[round(x, 1) for x in server.replay_ms]}; "
+          f"with their own IMU slices, replay ms {[round(x, 1) for x in replay_ms]}; "
           f"{len(after)} finite poses after the recovery, {chunks_after} chunks after it, "
           f"{server.n_chunks} chunks in all over {len(data.frames)} frames in {wall:.1f} s",
           flush=True)

@@ -28,6 +28,7 @@ import torch
 from mobile_slam_tpu_torch.engine import estimator as est
 from mobile_slam_tpu_torch.engine.vio_engine import VIOEngine
 from mobile_slam_tpu_torch.frontend import tracker as trk
+from mobile_slam_tpu_torch.utils import logging as slog
 
 # Scale-runaway gate constants, shared with the streaming engine.
 _DEPTH_RUNAWAY_FACTOR = VIOEngine.DEPTH_RUNAWAY_FACTOR
@@ -155,14 +156,19 @@ def make_image_frame_step(params: est.StaticParams, num_iterations: int,
             vel=tout.vel.to(dtype), valid=tout.valid, imu_dt=inp.imu_dt,
             imu_acc=inp.imu_acc, imu_gyr=inp.imu_gyr, imu_cnt=inp.imu_cnt)
         state, is_kf = est.bookkeeping_step(carry.est_state, finp, params)
-        state, p, q, diag = est.solve_and_slide(
-            state, bool(is_kf) if host_branch else is_kf, params, num_iterations)
-        ema1, vema1, runaway = scale_gate(carry.depth_ema, carry.vel_ema,
-                                          diag.med_depth, diag.vel_norm)
-        lagd, lagv, lagi, growth = growth_gate(carry.lag_depth, carry.lag_vel,
-                                               carry.lag_i, diag.med_depth,
-                                               diag.vel_norm)
-        ok = _frame_ok(diag) & ~runaway & ~growth
+        if host_branch:
+            with slog.span("kf_flag"):
+                branch = bool(is_kf)
+        else:
+            branch = is_kf
+        state, p, q, diag = est.solve_and_slide(state, branch, params, num_iterations)
+        with slog.span("gates"):
+            ema1, vema1, runaway = scale_gate(carry.depth_ema, carry.vel_ema,
+                                              diag.med_depth, diag.vel_norm)
+            lagd, lagv, lagi, growth = growth_gate(carry.lag_depth, carry.lag_vel,
+                                                   carry.lag_i, diag.med_depth,
+                                                   diag.vel_norm)
+            ok = _frame_ok(diag) & ~runaway & ~growth
         return (ImageChunkCarry(state, tstate, diag.culled_ids, carry.gen, ema1,
                                 vema1, lagd, lagv, lagi),
                 (p, q, ok, is_kf))
@@ -183,14 +189,16 @@ def make_chunked_image_step(params: est.StaticParams, num_iterations: int,
 
     def chunk(carry: ImageChunkCarry, inputs: ImageFrameInput, ransac_draws=None):
         n = inputs.img.shape[0]
-        pre = [trk.preprocess_frame(inputs.img[t], tracker_cfg) for t in range(n)]
-        if ransac_draws is None:
-            ransac_draws = torch.randint(
-                0, 1 << 30, (n, tracker_cfg.ransac_iters, 8), generator=carry.gen,
-                device=inputs.img.device)
+        with slog.span("preprocess"):
+            pre = [trk.preprocess_frame(inputs.img[t], tracker_cfg) for t in range(n)]
+            if ransac_draws is None:
+                ransac_draws = torch.randint(
+                    0, 1 << 30, (n, tracker_cfg.ransac_iters, 8), generator=carry.gen,
+                    device=inputs.img.device)
         outs = []
         for t in range(n):
-            carry, out = one_frame(carry, _unstack(inputs, t), pre[t], ransac_draws[t])
+            with slog.span("frame", request=slog.frame_request(t), index=t):
+                carry, out = one_frame(carry, _unstack(inputs, t), pre[t], ransac_draws[t])
             outs.append(out)
         return carry, tuple(torch.stack(x) for x in zip(*outs))
 

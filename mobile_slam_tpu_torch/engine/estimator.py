@@ -38,6 +38,7 @@ from mobile_slam_tpu_torch.models.state import (FeatureTable, WindowState,
 from mobile_slam_tpu_torch.solver import lm
 from mobile_slam_tpu_torch.solver.assembly import (Prior, SolverParams, XState,
                                                    zero_prior)
+from mobile_slam_tpu_torch.utils import logging as slog
 from mobile_slam_tpu_torch.utils import rotations as rot
 from mobile_slam_tpu_torch.utils.linalg import tree_where
 
@@ -237,6 +238,7 @@ def ingest_imu(state: EstimatorState, inp: FrameInput, params: StaticParams) -> 
                           first_imu_seen=state.first_imu_seen | has_any)
 
 
+@slog.traced("bookkeeping")
 def bookkeeping_step(state: EstimatorState, inp: FrameInput,
                      params: StaticParams):
     """IMU ingestion + feature add + keyframe decision -> (state, is_kf)."""
@@ -342,6 +344,7 @@ def _fuse_td(td, res: lm.SolveResult, params: StaticParams):
     return fused, gain
 
 
+@slog.traced("solve")
 def solve_and_slide(state: EstimatorState, is_kf, params: StaticParams,
                     num_iterations: int):
     """Triangulate, optimize, marginalize, slide. Returns (state, body_p,
@@ -350,12 +353,14 @@ def solve_and_slide(state: EstimatorState, is_kf, params: StaticParams,
     both branches and selects on the device (module docstring)."""
     on_device = isinstance(is_kf, torch.Tensor)
     w = state.window
-    table = ft.triangulate(state.table, w.p, w.q, params.ex_t, params.ex_q,
-                           params.init_depth, td=state.td)
+    with slog.span("triangulate"):
+        table = ft.triangulate(state.table, w.p, w.q, params.ex_t, params.ex_q,
+                               params.init_depth, td=state.td)
     sp = solver_params(params)
-    w, table, res, culled_ids = lm.optimize(w, table, state.prior, params.ex_t,
-                                            params.ex_q, sp, num_iterations,
-                                            td0=state.td, host_branch=not on_device)
+    with slog.span("optimize"):
+        w, table, res, culled_ids = lm.optimize(w, table, state.prior, params.ex_t,
+                                                params.ex_q, sp, num_iterations,
+                                                td0=state.td, host_branch=not on_device)
     td, gain = _fuse_td(state.td, res, params)
     x_post = XState(p=w.p, q=w.q, v=w.v, ba=w.ba, bg=w.bg, lam=res.x.lam, td=td)
 
@@ -380,13 +385,17 @@ def solve_and_slide(state: EstimatorState, is_kf, params: StaticParams,
         return (_slide_window_new(w, state.prev_acc, state.prev_gyr, params.noise),
                 ft.slide_new(table))
 
-    if on_device:
-        prior = tree_where(is_kf, margin_old(), margin_new())
-        (w_old, t_old), (w_new, t_new) = slide_old(), slide_new()
-        w2, table2 = tree_where(is_kf, w_old, w_new), tree_where(is_kf, t_old, t_new)
-    else:
-        prior = margin_old() if is_kf else margin_new()
-        w2, table2 = slide_old() if is_kf else slide_new()
+    with slog.span("marginalize"):
+        if on_device:
+            prior = tree_where(is_kf, margin_old(), margin_new())
+        else:
+            prior = margin_old() if is_kf else margin_new()
+    with slog.span("slide"):
+        if on_device:
+            (w_old, t_old), (w_new, t_new) = slide_old(), slide_new()
+            w2, table2 = tree_where(is_kf, w_old, w_new), tree_where(is_kf, t_old, t_new)
+        else:
+            w2, table2 = slide_old() if is_kf else slide_new()
     # No-op with td disabled (its prior column is identically zero).
     J0 = prior.J0.clone()
     J0[:, layout.TD_COL] = J0[:, layout.TD_COL] * params.td_forget

@@ -17,7 +17,6 @@ frames.
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -25,6 +24,7 @@ import torch
 
 from mobile_slam_tpu_torch.engine import chunked
 from mobile_slam_tpu_torch.engine.vio_engine import Status, VIOEngine
+from mobile_slam_tpu_torch.utils import logging as slog
 
 
 class ServeResult(NamedTuple):
@@ -69,13 +69,11 @@ class ChunkedImageServer:
         self._buf_ts: list[float] = []
         self._stable = 0
         self._replaying = False
-        # counters for observability / tests
+        # Counters; the times are the spans' (``chunk``, ``recover``: utils/logging.py).
         self.n_chunks = 0
         self.n_recoveries = 0
-        self.chunk_wall_s = 0.0   # cumulative wall time of chunk calls
         self.frames_chunked = 0   # real (not padding) frames through chunks
         self.frames_streamed = 0  # engine.process_frame calls, replays included
-        self.replay_ms: list[float] = []  # host clock of each rebuild + tail replay
 
     # -- IMU ------------------------------------------------------------
 
@@ -159,14 +157,17 @@ class ChunkedImageServer:
 
     def _run_chunk(self, n_real: Optional[int] = None) -> list[ServeResult]:
         n_real = n_real if n_real is not None else len(self._buf)
-        batch = chunked.stack_image_inputs(self._buf, self.engine.device)
-        t0 = time.perf_counter()
-        self._carry, (p, q, ok, kf) = self._step(self._carry, batch)
-        # One device -> host copy for the whole chunk.
-        out = torch.cat([p.to(torch.float64), q.to(torch.float64),
-                         ok[:, None].to(torch.float64),
-                         kf[:, None].to(torch.float64)], dim=1).cpu().numpy()
-        self.chunk_wall_s += time.perf_counter() - t0
+        with slog.span("chunk", index=self.n_chunks, frames=n_real):
+            with slog.span("chunk.upload"):
+                batch = chunked.stack_image_inputs(self._buf, self.engine.device)
+            with slog.span("chunk.step"):
+                self._carry, (p, q, ok, kf) = self._step(self._carry, batch)
+            # One device -> host copy for the whole chunk: the host waits
+            # here for the chunk's device work.
+            with slog.span("chunk.readback"):
+                out = torch.cat([p.to(torch.float64), q.to(torch.float64),
+                                 ok[:, None].to(torch.float64),
+                                 kf[:, None].to(torch.float64)], dim=1).cpu().numpy()
         self.n_chunks += 1
         self.frames_chunked += n_real
         ok_np = out[:, 7] > 0.5
@@ -188,28 +189,27 @@ class ChunkedImageServer:
                 break
             tail += 1
         if tail >= self.recover_tail:
-            t_replay = time.perf_counter()
-            self._recover()
-            k0 = n_real - tail
-            self._replaying = True
-            # The replay runs from the post-chunk tracker state, which
-            # already saw these frames: the first replayed frame arrives
-            # with a backwards timestamp and re-seeds the tracks (the
-            # tracker's dt guard zeroes its velocities), as in the
-            # reference.
-            try:
-                for k in range(k0, n_real):
-                    inp = inputs[k]
-                    cnt = int(inp.imu_cnt)
-                    override = (inp.imu_dt[:cnt].numpy(), inp.imu_acc[:cnt].numpy(),
-                                inp.imu_gyr[:cnt].numpy())
-                    replay = self._process_stream(inp.img.numpy(), in_ts[k],
-                                                  imu_override=override)
-                    results[k] = (replay[0] if replay else
-                                  results[k]._replace(ok=False, chunked=False))
-            finally:
-                self._replaying = False
-            self.replay_ms.append(1e3 * (time.perf_counter() - t_replay))
+            with slog.span("recover", frames=tail):
+                self._recover()
+                k0 = n_real - tail
+                self._replaying = True
+                # The replay runs from the post-chunk tracker state, which
+                # already saw these frames: the first replayed frame arrives
+                # with a backwards timestamp and re-seeds the tracks (the
+                # tracker's dt guard zeroes its velocities), as in the
+                # reference.
+                try:
+                    for k in range(k0, n_real):
+                        inp = inputs[k]
+                        cnt = int(inp.imu_cnt)
+                        override = (inp.imu_dt[:cnt].numpy(), inp.imu_acc[:cnt].numpy(),
+                                    inp.imu_gyr[:cnt].numpy())
+                        replay = self._process_stream(inp.img.numpy(), in_ts[k],
+                                                      imu_override=override)
+                        results[k] = (replay[0] if replay else
+                                      results[k]._replace(ok=False, chunked=False))
+                finally:
+                    self._replaying = False
             if self._stable >= self.stable_frames:
                 self._enter_chunked()
         return results
@@ -247,10 +247,3 @@ class ChunkedImageServer:
     @property
     def mode(self) -> str:
         return self._mode
-
-    def chunked_fps(self) -> float:
-        """Throughput of the chunked segments alone (real frames per second
-        of chunk-call wall time)."""
-        if self.chunk_wall_s <= 0:
-            return 0.0
-        return self.frames_chunked / self.chunk_wall_s

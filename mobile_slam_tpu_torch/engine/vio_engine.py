@@ -38,6 +38,7 @@ from mobile_slam_tpu_torch.engine import estimator as est
 from mobile_slam_tpu_torch.frontend import tracker as trk
 from mobile_slam_tpu_torch.models.cameras.base import make_camera
 from mobile_slam_tpu_torch.models.state import eligible_mask
+from mobile_slam_tpu_torch.utils import logging as slog
 from mobile_slam_tpu_torch.utils import rotations as rot
 
 W = NUM_SLOTS
@@ -162,21 +163,22 @@ class VIOEngine:
         self._pipelined = False
         self._pipeline_depth = 1
         self._pending: list[_PendingFrame] = []
-        # Per-stage host wall-time EMAs (ms), keyed by stage name. Dispatch
-        # stages measure host-side cost; result_wait the blocking readback.
+        # EMAs (ms) of the stage spans' host durations, keyed by span name:
+        # the dispatch stages' host cost, and result_wait the blocking readback.
         self.stage_ms: dict = {}
         self.reset()
 
     def _t(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype or self.dtype, device=self.device)
 
-    def _stage_time(self, name: str, t0: float) -> None:
-        dt_ms = (time.perf_counter() - t0) * 1e3
-        prev = self.stage_ms.get(name)
-        self.stage_ms[name] = dt_ms if prev is None else prev + 0.05 * (dt_ms - prev)
+    def _stage_time(self, span: slog.Span) -> None:
+        dt_ms = span.seconds * 1e3
+        prev = self.stage_ms.get(span.name)
+        self.stage_ms[span.name] = dt_ms if prev is None else prev + 0.05 * (dt_ms - prev)
 
     def get_timing(self) -> dict:
-        """Smoothed per-stage host wall times in ms (tracing hook)."""
+        """Smoothed host durations in ms of the spans ``tracker_dispatch``,
+        ``solve_dispatch`` and ``result_wait``."""
         return {k: round(v, 3) for k, v in self.stage_ms.items()}
 
     def reset(self) -> None:
@@ -337,17 +339,18 @@ class VIOEngine:
         imu_override: optional (dts, accs, gyrs) host arrays used instead
         of draining the engine's IMU buffer (the serving layer replays
         frames whose IMU slice a chunk already drained)."""
-        t0 = time.perf_counter()
-        img = self._t(np.asarray(image))
-        if self._t0 is None:
-            self._t0 = frame_ts
-        self.tracker_state, tout = trk.detect_and_track(
-            self.tracker_state, img, frame_ts - self._t0, self.camera,
-            self.cfg.tracker, self.cfg.camera.focal_length,
-            generator=self._gen, banned_ids=self._banned_ids)
-        self._stage_time("tracker_dispatch", t0)
-        feats = (tout.ids, tout.obs, tout.uv, tout.vel, tout.valid)
-        return self._process_tracked(frame_ts, feats=feats, imu_override=imu_override)
+        with slog.span("stream_frame", request=frame_ts):
+            with slog.span("tracker_dispatch") as span:
+                img = self._t(np.asarray(image))
+                if self._t0 is None:
+                    self._t0 = frame_ts
+                self.tracker_state, tout = trk.detect_and_track(
+                    self.tracker_state, img, frame_ts - self._t0, self.camera,
+                    self.cfg.tracker, self.cfg.camera.focal_length,
+                    generator=self._gen, banned_ids=self._banned_ids)
+            self._stage_time(span)
+            feats = (tout.ids, tout.obs, tout.uv, tout.vel, tout.valid)
+            return self._process_tracked(frame_ts, feats=feats, imu_override=imu_override)
 
     def process_features(self, frame_ts: float, ids, rays, uv=None, vel=None,
                          valid=None) -> FrameResult:
@@ -522,9 +525,9 @@ class VIOEngine:
         return FrameResult(False, None, Status.INITIALIZING, n_feat, is_kf)
 
     def _process_tracking(self, is_kf: bool) -> FrameResult:
-        t0 = time.perf_counter()
-        self.state, packed, diag = self._solve(self.state, is_kf)
-        self._stage_time("solve_dispatch", t0)
+        with slog.span("solve_dispatch") as span:
+            self.state, packed, diag = self._solve(self.state, is_kf)
+        self._stage_time(span)
         # The outlier ban reaches the tracker device to device.
         self._banned_ids = diag.culled_ids
         if not self._pipelined:
@@ -603,13 +606,13 @@ class VIOEngine:
         return out
 
     def _finalize_tracking(self, packed, ts: Optional[float] = None) -> FrameResult:
-        t0 = time.perf_counter()
-        if isinstance(packed, _PendingFrame):
-            ts = packed.ts
-            v = packed.resolve()
-        else:
-            v = packed.cpu().numpy().astype(np.float64)
-        self._stage_time("result_wait", t0)
+        with slog.span("result_wait") as span:
+            if isinstance(packed, _PendingFrame):
+                ts = packed.ts
+                v = packed.resolve()
+            else:
+                v = packed.cpu().numpy().astype(np.float64)
+        self._stage_time(span)
         p_np, q_np = v[:3], v[3:7]
         vel, pos, med_depth = float(v[7]), float(v[8]), float(v[9])
         finite = bool(v[10] > 0.5)

@@ -23,6 +23,7 @@ from mobile_slam_tpu_torch.config import TrackerConfig
 from mobile_slam_tpu_torch.models.cameras.base import Camera
 from mobile_slam_tpu_torch.ops import clahe as clahe_op
 from mobile_slam_tpu_torch.ops import corners, image as im, lk, ransac
+from mobile_slam_tpu_torch.utils import logging as slog
 
 
 class TrackerState(NamedTuple):
@@ -105,6 +106,7 @@ def preprocess_frame(img: torch.Tensor, cfg: TrackerConfig):
     return img, pyr, response
 
 
+@slog.traced("track")
 def detect_and_track(state: TrackerState, img: torch.Tensor, ts, camera: Camera,
                      cfg: TrackerConfig, focal: float, *,
                      generator: torch.Generator | None = None,

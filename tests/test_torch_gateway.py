@@ -436,30 +436,40 @@ def test_failure_detector_matches_reference(name, edits, last_scale, fires):
 
 
 def test_logging_levels_and_frame_profiler(capsys):
+    """Leveled logging, and per-stage times, which the span recorder (the
+    frame profiler's successor) keeps for each stage span."""
     slog.info("hello from the port")
     slog.debug("hidden at the INFO level")
     err = capsys.readouterr().err
     assert "[INFO] test_torch_gateway.py:" in err and "hello from the port" in err
     assert "hidden" not in err
-    prof = slog.FrameProfiler(window=4)
-    assert prof.fps == 0.0
-    for _ in range(3):
-        with prof.stage("track"):
-            time.sleep(0.002)
-        prof.tick_frame()
-    s = prof.summary()
-    assert s["fps"] > 0 and s["track_ms"] >= 2.0
-    assert len(prof.frame_times) == 2
+    rec = slog.Recorder()
+    with rec.tracing():
+        for _ in range(3):
+            with rec.span("stream_frame"), rec.span("track"):
+                time.sleep(0.002)
+    spans = rec.drain()
+    assert [s.name for s in spans] == ["track", "stream_frame"] * 3
+    assert all(s.seconds >= 0.002 for s in spans)
 
 
 def test_device_trace_on_cpu_writes_a_trace(tmp_path):
+    """The trace holds the profiler's ops and the program's spans on a track
+    of their own, on one clock: a span encloses the op run inside it."""
     with slog.device_trace(str(tmp_path / "trace"), device="cpu") as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with slog.span("outer_stage", index=7):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    assert not slog.RECORDER.on and slog.drain() == []
     path = tmp_path / "trace" / "trace.json"
     assert path.is_file()
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    assert any("mm" in e.get("name", "") for e in events)
+    mm = [e for e in events if e.get("name") == "aten::mm"]
+    spans = [e for e in events if e.get("name") == "outer_stage"]
+    assert mm and len(spans) == 1
+    span = spans[0]
+    assert span["ph"] == "X" and span["pid"] == slog.SPAN_TRACK and span["args"]["index"] == 7
+    assert span["ts"] <= mm[0]["ts"] <= mm[0]["ts"] + mm[0]["dur"] <= span["ts"] + span["dur"]
     assert prof.key_averages() is not None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):

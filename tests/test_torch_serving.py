@@ -34,6 +34,7 @@ from mobile_slam_tpu_torch.eval import simulation as sim
 from mobile_slam_tpu_torch.eval.evaluator import compute_ate
 from mobile_slam_tpu_torch.models.cameras.base import make_camera
 from mobile_slam_tpu_torch.ops import lk
+from mobile_slam_tpu_torch.utils import logging as slog
 
 L = chunked.GROWTH_WINDOW
 
@@ -253,7 +254,7 @@ def test_imu_override_matches_reference(interpret_mode, monkeypatch):
 def test_serving_path_on_cpu():
     """The whole path at a small size: stream until TRACKING + 3 frames,
     chunks of 4, a padded last chunk; every frame answered, finite poses,
-    no CUDA kernel launched."""
+    a ``chunk`` span for each chunk, no CUDA kernel launched."""
     cfg = small_cfg()
     cam = make_camera(cfg.camera, dtype=torch.float64, device="cpu")
     data = sim.simulate(example.bench_sim_config(1.3), cam, cfg.camera.r_ic_mat,
@@ -261,14 +262,16 @@ def test_serving_path_on_cpu():
     server = ChunkedImageServer(cfg, device="cpu", chunk_size=4, stable_frames=4)
     before = dict(lk.launch_counts)
     results, imu_i = [], 0
-    for fi in range(len(data.frames)):
-        ts = data.cam_ts[fi]
-        while imu_i < len(data.imu_ts) and data.imu_ts[imu_i] <= ts + 1e-9:
-            server.push_imu(data.imu_ts[imu_i], data.imu_acc[imu_i], data.imu_gyr[imu_i])
-            imu_i += 1
-        results += server.process_frame(
-            sim.render_frame(data, fi, cam, example.R_IC, cfg.camera.t_ic_vec), ts)
-    results += server.flush()
+    with slog.tracing():
+        for fi in range(len(data.frames)):
+            ts = data.cam_ts[fi]
+            while imu_i < len(data.imu_ts) and data.imu_ts[imu_i] <= ts + 1e-9:
+                server.push_imu(data.imu_ts[imu_i], data.imu_acc[imu_i], data.imu_gyr[imu_i])
+                imu_i += 1
+            results += server.process_frame(
+                sim.render_frame(data, fi, cam, example.R_IC, cfg.camera.t_ic_vec), ts)
+        results += server.flush()
+    spans = slog.drain()
     assert server.n_chunks >= 2 and server.frames_chunked >= 8
     chunked_res = [r for r in results if r.chunked]
     assert len(chunked_res) == server.frames_chunked
@@ -277,5 +280,5 @@ def test_serving_path_on_cpu():
     ate = compute_ate(np.asarray([r.ts for r in ok]), np.asarray([r.p for r in ok]),
                       data.cam_ts, data.gt_p)
     assert ate.rmse < 0.05
-    assert server.chunked_fps() > 0
+    assert sum(s.name == "chunk" for s in spans) == server.n_chunks
     assert lk.launch_counts == before
