@@ -12,10 +12,17 @@ with the first chunk (or streamed frame) that completes after ``seconds``.
 window's elapsed time. Where the window held fewer than ``check_frames``
 frames (a slower program or host), the replay goes on, untimed, until it
 has: the checks always judge at least that many frames past the set-up.
+
+``failed`` counts the window's frames without a pose, less a recording's
+initialisation: its frames before its first pose, among the first
+``init_frames`` (the traffic file's) fed to its fresh server. The
+configuration owes a pose only once the first is served; the cap keeps a
+recording that never serves one failing.
 """
 
 from __future__ import annotations
 
+import math
 import sys
 import time
 
@@ -66,6 +73,7 @@ class Segment:
 def run(cfg, traffic, seed, seconds, trace, t_start, device="cuda") -> Run:
     from mobile_slam_tpu_torch.engine.serving import ChunkedImageServer
 
+    init = init_frames(traffic)
     marks = common.Marks(t_start)
     marks("imports")
     vio_cfg = common.vio_config(cfg)
@@ -122,7 +130,7 @@ def run(cfg, traffic, seed, seconds, trace, t_start, device="cuda") -> Run:
     common.release(device)
 
     notes = [f"{window} frames in the window; {fed() - window} frames after it for the checks"]
-    checks, failed = _checks(cfg, segs, fed0, window, notes)
+    checks, failed = _checks(cfg, segs, fed0, window, init, notes)
     print(f"vio_bench: {came} results of {window} frames in {elapsed:.3f} s over "
           f"{len(segs)} recording(s)", file=sys.stderr)
     print(f"vio_bench: {marks.line()}", file=sys.stderr)
@@ -133,12 +141,44 @@ def run(cfg, traffic, seed, seconds, trace, t_start, device="cuda") -> Run:
                notes=notes)
 
 
-def _checks(cfg, segs, fed0, window, notes) -> tuple[dict, int]:
+def init_frames(traffic: dict) -> int:
+    """The traffic's ``init_frames``, a whole number of frames; no default."""
+    n = traffic.get("init_frames")
+    if type(n) is not int or n < 0:
+        raise ValueError(f"the traffic file needs init_frames, a whole number of frames; "
+                         f"it has {n!r}")
+    return n
+
+
+def first_pose_frame(fed, served) -> int | None:
+    """The frames fed before the first good pose of a recording (``fed``:
+    its stamps in order; ``served``: [(stamp, ok)]); None without one."""
+    first = min((ts for ts, ok in served if ok), default=None)
+    return None if first is None else sum(ts < first for ts in fed)
+
+
+def failed_frames(segments, fed0: int, window: int, init: int) -> int:
+    """The window's frames without a good pose. The window is the first
+    ``window`` frames past the first recording's ``fed0``, through the
+    recordings in turn (``segments``: [(fed stamps, [(served stamp, ok)])]).
+    A frame among the first ``init`` fed to its recording, before that
+    recording's first pose, is its initialisation and is not counted."""
+    failed = 0
+    for k, (fed, served) in enumerate(segments):
+        ok = {ts for ts, good in served if good}
+        first = min(ok, default=math.inf)
+        start = fed0 if k == 0 else 0
+        frames = list(enumerate(fed))[start:start + window]
+        window -= len(frames)
+        failed += sum(ts not in ok and not (i < init and ts < first) for i, ts in frames)
+    return failed
+
+
+def _checks(cfg, segs, fed0, window, init, notes) -> tuple[dict, int]:
     """The numbers compared, over every frame the recordings' servers
-    were fed; and the window's frames without a pose (its first
-    ``window`` frames past the set-up's ``fed0``)."""
-    unanswered, missing, after, failed = 0, 0, 0, 0
-    trajectories, tracks = [], []
+    were fed; and the window's frames without a pose (``failed_frames``)."""
+    unanswered, missing, after = 0, 0, 0
+    trajectories, tracks, segments, firsts = [], [], [], []
     for k, s in enumerate(segs):
         back = {r.ts for r in s.results}
         unanswered += sum(ts not in back for ts, streaming in s.fed if not streaming)
@@ -148,13 +188,15 @@ def _checks(cfg, segs, fed0, window, notes) -> tuple[dict, int]:
         later = [ts for ts, _ in s.fed if ts > first]
         after += len(later)
         missing += sum(ts not in ok for ts in later)
-        window_fed = (s.fed[fed0:] if k == 0 else s.fed)[:window]
-        window -= len(window_fed)
-        failed += sum(ts not in ok for ts, _ in window_fed)
+        segments.append(([ts for ts, _ in s.fed], [(r.ts, bool(r.ok)) for r in s.results]))
+        n = first_pose_frame(*segments[-1])
+        firsts.append(f"none in {len(s.fed)}" if n is None else str(n))
         good = [r for r in s.results if r.ok]
         if k == 0 or len(good) >= MIN_SEGMENT_POSES:
             trajectories.append((s.rec, [r.ts for r in good], [r.p for r in good]))
         tracks.append((s.rec, s.states))
+    notes.append(f"frames to first pose by recording: {', '.join(firsts)} (init_frames {init})")
+    failed = failed_frames(segments, fed0, window, init)
     return dict(unanswered=float(unanswered), missing_pct=100.0 * missing / max(after, 1),
                 track_drift_p90_px=common.track_drift(cfg, tracks, notes),
                 **common.trajectory_checks(trajectories)), failed

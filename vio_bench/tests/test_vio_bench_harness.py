@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from vio_bench import harness, roofline
-from vio_bench.entries import common
+from vio_bench.entries import common, replay
 from vio_bench.sim import render, world
 from vio_bench.sim.cameras import Camera
 
@@ -268,3 +268,70 @@ def test_without_a_card_the_run_refuses():
                          "--seconds", "1", "--trace", "0"], 0.0)
     assert code != 0
 
+
+
+# The failed count (``replay.failed_frames``) on recordings of 301 frames at
+# 20 Hz: the set-up feeds the first recording's first FED0 frames, and a
+# fresh engine serves its first pose at frame 11 (its window of 10 filled).
+FED0, INIT, FIRST = 40, 25, 11
+
+
+def _recording(k: int, n: int, poses=range(FIRST, 301), bad=()) -> tuple:
+    """(fed stamps, [(served stamp, ok)]) of the ``k``-th recording fed
+    ``n`` frames, with good poses at the frames ``poses`` less ``bad``."""
+    fed = [100.0 * k + 0.05 * i for i in range(n)]
+    return fed, [(fed[i], i in poses and i not in bad) for i in range(n)]
+
+
+def _old_count(segments, fed0, window) -> int:
+    """The count before ``init_frames``: every window frame without a pose."""
+    failed = 0
+    for k, (fed, served) in enumerate(segments):
+        ok = {ts for ts, good in served if good}
+        window_fed = (fed[fed0:] if k == 0 else fed)[:window]
+        window -= len(window_fed)
+        failed += sum(ts not in ok for ts in window_fed)
+    return failed
+
+
+def test_a_second_recording_initialising_at_frame_11_fails_nothing():
+    segments = [_recording(0, 301), _recording(1, 48)]
+    window = 301 - FED0 + 48
+    assert replay.first_pose_frame(*segments[1]) == FIRST
+    assert replay.failed_frames(segments, FED0, window, INIT) == 0
+    assert _old_count(segments, FED0, window) == FIRST
+
+
+def test_a_recording_that_never_serves_fails_past_init_frames():
+    segments = [_recording(0, 301), _recording(1, 48, poses=())]
+    assert replay.first_pose_frame(*segments[1]) is None
+    assert replay.failed_frames(segments, FED0, 301 - FED0 + 48, INIT) == 48 - INIT
+    # frames past the window are not the window's
+    assert replay.failed_frames(segments, FED0, 301 - FED0 + 30, INIT) == 30 - INIT
+
+
+@pytest.mark.parametrize("bad,want", [((15,), 1), ((30,), 1), ((12, 24, 25, 40), 4)],
+                         ids=["inside-init", "past-init", "both"])
+def test_a_pose_missing_after_the_first_fails(bad, want):
+    segments = [_recording(0, 301), _recording(1, 48, bad=bad)]
+    assert replay.failed_frames(segments, FED0, 301 - FED0 + 48, INIT) == want
+
+
+@pytest.mark.parametrize("bad", [(), (50,), (45, 46, 120, 200), (39, 41, 250)])
+@pytest.mark.parametrize("window", [130, 261])
+def test_one_recording_counts_as_before(bad, window):
+    segments = [_recording(0, 301, bad=bad)]
+    want = _old_count(segments, FED0, window)
+    assert replay.failed_frames(segments, FED0, window, INIT) == want
+    assert want == sum(FED0 <= i < FED0 + window for i in bad)
+
+
+def test_init_frames_comes_from_the_traffic_file():
+    traffic = harness.load_json("traffic", "replay_chunk25.json")
+    assert replay.init_frames(traffic) == 25
+    del traffic["init_frames"]
+    with pytest.raises(ValueError, match="init_frames"):
+        replay.init_frames(traffic)
+    for wrong in (None, -1, 2.5, "25", True):
+        with pytest.raises(ValueError, match="init_frames"):
+            replay.init_frames(dict(traffic, init_frames=wrong))
