@@ -22,6 +22,8 @@ slide at its fused value. Nothing reads td or its switch on the host.
 
 from __future__ import annotations
 
+import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -344,7 +346,23 @@ def _fuse_td(td, res: lm.SolveResult, params: StaticParams):
     return fused, gain
 
 
+def _one_thread_at_a_time(fn):
+    """torch.func's forward mode (``jacfwd``, ``jvp``: the solver's
+    Jacobians) keeps its levels process-wide, so two threads inside it at
+    once corrupt each other's ("a forward AD level with an invalid index").
+    The gateway serves each session in a thread, and the solve is the
+    engine's only forward-mode stage: it runs in one thread at a time."""
+    lock = threading.Lock()
+
+    @functools.wraps(fn)
+    def inner(*args, **kwargs):
+        with lock:
+            return fn(*args, **kwargs)
+    return inner
+
+
 @slog.traced("solve")
+@_one_thread_at_a_time
 def solve_and_slide(state: EstimatorState, is_kf, params: StaticParams,
                     num_iterations: int):
     """Triangulate, optimize, marginalize, slide. Returns (state, body_p,
@@ -357,10 +375,11 @@ def solve_and_slide(state: EstimatorState, is_kf, params: StaticParams,
         table = ft.triangulate(state.table, w.p, w.q, params.ex_t, params.ex_q,
                                params.init_depth, td=state.td)
     sp = solver_params(params)
-    with slog.span("optimize"):
+    with slog.span("optimize") as span:
         w, table, res, culled_ids = lm.optimize(w, table, state.prior, params.ex_t,
                                                 params.ex_q, sp, num_iterations,
                                                 td0=state.td, host_branch=not on_device)
+        span.attrs["graph"] = lm.last_form()
     td, gain = _fuse_td(state.td, res, params)
     x_post = XState(p=w.p, q=w.q, v=w.v, ba=w.ba, bg=w.bg, lam=res.x.lam, td=td)
 

@@ -25,13 +25,27 @@ After the loop: NaN rollback, the 4-dof gauge fix of frame 0, the decoupled
 td innovation (a scalar Gauss-Newton step on the projection cost at the
 solved state, ``assembly.td_grad_hess``), depth write-back and
 reprojection-error outlier culling.
+
+``optimize`` is a few thousand small kernels whose launches, not their
+work, set its time on the card. Where nothing in a call reads the device
+from the host or needs eager dispatch (``why_eager``), it runs as a CUDA
+graph: captured once per key (device, each input's shape and type, the
+iteration count, ``host_branch``, the three options, the calling thread)
+into a process-wide cache, then replayed, the caller's tensors copied into
+the graph's static inputs and its outputs cloned out. The kernels are those
+of the eager call; the IMU factors' batched Cholesky solve (MAGMA, which a
+capture refuses) runs eagerly just before the replay. ``graph_counts``
+counts captures, replays and eager calls; ``last_form()`` says which the
+calling thread's last call was.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from mobile_slam_tpu_torch.config import NUM_SLOTS
 from mobile_slam_tpu_torch.solver import layout
@@ -54,11 +68,18 @@ EARLY_EXIT_FTOL: float | None = None
 # LM iterations run and host reads made by the host forms of GREEDY_GN and
 # EARLY_EXIT_FTOL since the last reset_counts() (python counters, no sync).
 counts = {"iterations": 0, "host_reads": 0}
+# optimize calls that captured a CUDA graph, replayed one, or ran eagerly,
+# since the last reset_counts().
+graph_counts = {"captures": 0, "replays": 0, "eager": 0}
+# Eager runs of optimize on the capture stream before its capture, so that
+# cuBLAS and cuSOLVER make their handles and workspaces outside it.
+GRAPH_WARMUP = 3
 
 
 def reset_counts() -> None:
-    for k in counts:
-        counts[k] = 0
+    for d in (counts, graph_counts):
+        for k in d:
+            d[k] = 0
 
 
 class SolveResult(NamedTuple):
@@ -107,12 +128,15 @@ def _solve_damped(eqs: assembly.NormalEqs, mu, lam_mask):
 
 def solve(x0: XState, table: FeatureTable, window: WindowState, prior: Prior,
           ex_t, ex_q, params: SolverParams, num_iterations: int,
-          mu_init: float = 1e-8, host_branch: bool = True) -> SolveResult:
+          mu_init: float = 1e-8, host_branch: bool = True, *,
+          imu_sqrt_info=None) -> SolveResult:
     """The LM loop; ``host_branch`` picks the form of the step options
-    (module docstring)."""
+    (module docstring). ``imu_sqrt_info``: the IMU factors' square-root
+    information, computed here from the window when None."""
     greedy, batched, ftol = GREEDY_GN, BATCH_CANDIDATES, EARLY_EXIT_FTOL
     dtype = x0.p.dtype
-    imu_sqrt_info = sqrt_info_from_cov(window.pre.cov[1:])
+    if imu_sqrt_info is None:
+        imu_sqrt_info = sqrt_info_from_cov(window.pre.cov[1:])
     imu_valid = (window.pre.sum_dt[1:] < 10.0) & (window.imu_cnt[1:] > 0)
     proj_valid = assembly.proj_valid_mask(table)
     lam_mask = eligible_mask(table)
@@ -211,12 +235,130 @@ def apply_gauge_fix(x: XState, p0_old, q0_old) -> XState:
                   v=x.v @ rot_diff.T, ba=x.ba, bg=x.bg, lam=x.lam, td=x.td)
 
 
+def why_eager(leaves, host_branch: bool, greedy: bool, batched: bool,
+              ftol) -> str | None:
+    """Why ``optimize`` on these inputs (the leaves of its tensor arguments)
+    under these step options must run eagerly, or None when a captured CUDA
+    graph can run it: a host read, ``BATCH_CANDIDATES``' batched Cholesky
+    solve (MAGMA on the card, which a capture refuses), an input batched or
+    differentiated by ``torch.func`` or autograd, or an input off the card."""
+    if host_branch and (greedy or ftol is not None):
+        return "host read"
+    if batched and not greedy:
+        return "batched Cholesky solve"
+    tensors = [t for t in leaves if isinstance(t, torch.Tensor)]
+    if any(torch._C._functorch.is_functorch_wrapped_tensor(t) or t.requires_grad
+           for t in tensors):
+        return "batched or differentiated"
+    if not all(t.is_cuda for t in tensors):
+        return "not on CUDA"
+    return None
+
+
+class _Graph:
+    """``optimize`` captured for one key: static inputs (the leaves of its
+    arguments, then the IMU square-root information), the graph, and for
+    each output leaf either the input it passes through unchanged or the
+    static output it is cloned from."""
+
+    def __init__(self, leaves, spec, num_iterations: int, host_branch: bool):
+        self.thread = threading.current_thread()
+        self.device = leaves[0].device
+        self.inputs = [t.clone() for t in leaves]
+
+        def run():
+            window, table, prior, ex_t, ex_q, params, td0 = tree_unflatten(self.inputs[:-1],
+                                                                           spec)
+            return _optimize(window, table, prior, ex_t, ex_q, params, num_iterations,
+                             td0, host_branch, imu_sqrt_info=self.inputs[-1])
+
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                for _ in range(GRAPH_WARMUP):
+                    run()
+            torch.cuda.current_stream().wait_stream(stream)
+            self.graph = torch.cuda.CUDAGraph()
+            # thread_local: other threads' engines run on while this one captures.
+            with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
+                out = run()
+        counts["iterations"] -= (GRAPH_WARMUP + 1) * num_iterations
+        out_leaves, self.out_spec = tree_flatten(out)
+        passed = {id(t): i for i, t in enumerate(self.inputs)}
+        index: dict = {}
+        # (True, i): the caller's input leaf i, passed through as the eager
+        # call passes it; (False, j): a clone of static output j.
+        self.plan, self.outputs = [], []
+        for t in out_leaves:
+            if id(t) in passed:
+                self.plan.append((True, passed[id(t)]))
+                continue
+            if id(t) not in index:
+                index[id(t)] = len(self.outputs)
+                self.outputs.append(t)
+            self.plan.append((False, index[id(t)]))
+
+    def __call__(self, leaves):
+        with torch.cuda.device(self.device):
+            for s, t in zip(self.inputs, leaves):
+                s.copy_(t)
+            self.graph.replay()
+            fresh = [t.clone() for t in self.outputs]
+        return tree_unflatten([leaves[i] if from_input else fresh[i]
+                               for from_input, i in self.plan], self.out_spec)
+
+
+_graphs: dict = {}
+_capture_lock = threading.Lock()   # one capture at a time in the process
+_local = threading.local()
+
+
+def last_form() -> str:
+    """How the calling thread's last ``optimize`` ran: "capture", "replay"
+    or "eager"."""
+    return getattr(_local, "form", "eager")
+
+
 def optimize(window: WindowState, table: FeatureTable, prior: Prior, ex_t,
              ex_q, params: SolverParams, num_iterations: int, td0=0.0,
              host_branch: bool = True):
     """Solve, NaN rollback, gauge fix, depth write-back and outlier culling.
     Returns (window, table, SolveResult, culled_ids (F,)). ``host_branch``
-    as in ``solve``."""
+    as in ``solve``. Replays a captured CUDA graph unless ``why_eager``
+    gives a reason (module docstring)."""
+    if not isinstance(td0, torch.Tensor):
+        td0 = torch.as_tensor(td0, dtype=window.p.dtype, device=window.p.device)
+    leaves, spec = tree_flatten((window, table, prior, ex_t, ex_q, params, td0))
+    if why_eager(leaves, host_branch, GREEDY_GN, BATCH_CANDIDATES, EARLY_EXIT_FTOL):
+        _local.form = "eager"
+        graph_counts["eager"] += 1
+        return _optimize(window, table, prior, ex_t, ex_q, params, num_iterations,
+                         td0, host_branch)
+    key = (threading.get_ident(), leaves[0].device, num_iterations, host_branch, GREEDY_GN,
+           BATCH_CANDIDATES, EARLY_EXIT_FTOL, tuple((t.shape, t.dtype) for t in leaves))
+    # The ten IMU factors' batched Cholesky solve runs through MAGMA, which a
+    # capture refuses: it runs eagerly, before the graph, as it would inside.
+    leaves.append(sqrt_info_from_cov(window.pre.cov[1:]))
+    graph = _graphs.get(key)
+    if graph is None:
+        with _capture_lock:
+            for k in [k for k, g in _graphs.items() if not g.thread.is_alive()]:
+                del _graphs[k]
+            graph = _graphs[key] = _Graph(leaves, spec, num_iterations, host_branch)
+        _local.form = "capture"
+        graph_counts["captures"] += 1
+    else:
+        _local.form = "replay"
+        graph_counts["replays"] += 1
+    counts["iterations"] += num_iterations
+    return graph(leaves)
+
+
+def _optimize(window: WindowState, table: FeatureTable, prior: Prior, ex_t,
+              ex_q, params: SolverParams, num_iterations: int, td0, host_branch: bool,
+              imu_sqrt_info=None):
+    """``optimize``'s eager body (``imu_sqrt_info`` as in ``solve``)."""
     dtype, dev = window.p.dtype, window.p.device
     elig = eligible_mask(table)
     safe_depth = torch.where(table.depth > 0, table.depth, params.init_depth)
@@ -224,7 +366,7 @@ def optimize(window: WindowState, table: FeatureTable, prior: Prior, ex_t,
     x0 = XState(p=window.p, q=window.q, v=window.v, ba=window.ba, bg=window.bg,
                 lam=lam0, td=torch.as_tensor(td0, dtype=dtype, device=dev))
     res = solve(x0, table, window, prior, ex_t, ex_q, params, num_iterations,
-                host_branch=host_branch)
+                host_branch=host_branch, imu_sqrt_info=imu_sqrt_info)
 
     finite = torch.stack([torch.all(torch.isfinite(t)) for t in res.x]).all()
     x = tree_where(finite, res.x, x0)
